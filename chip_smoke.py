@@ -12,16 +12,30 @@ Phases, each printing one line:
    beam ids, and at the main path's BW = 8192 x 4 slots;
 4. K2 `block_patch` against its plain version, bitwise, on int32 and int8
    tables with many patches aimed at the dump block, then a small index
-   (20k points) searched on the card and, carried across, on the CPU;
+   (20k points, with the benchmark's labels) searched on the card and,
+   carried across, on the CPU: the packed search, and the filtered search
+   by the packed walk, the posting-list scan and the full inline route;
 5. main path: clustered n x 128 data, exact top-10 by `FlatIndex`, packed
    build (R=64, L=100, alpha=1.2, W=4, build_max_hops=12, occlusion cap
    256, batch 8192, dp=64), `attach_packed(dp=128)`, packed search at
    L = 16..40 (W=4, rerank_l=12, max_hops=6, bf16 router); fails unless
    some L reaches recall@10 >= 0.95 and both kernels ran on that path;
-6. kernel times against the plain versions at the main path's shapes, on
+6. filtered family of the JAX package's `bench.py` on the same index:
+   zipf-weighted labels cat0..cat31, then `search_filtered(..., l_search=90,
+   mode="packed", query_dtype=float16, max_hops=16)` for "cat0", "cat7" and
+   "cat0 | cat1" against an exact top-10 over each predicate's members;
+   fails unless cat7 takes the scan at recall >= 0.999, the other two take
+   the packed walk at recall >= 0.95 with K1 launched, and every result
+   honours its predicate without duplicates;
+7. full route on the first 1024 queries: `search(mode="full")` and the
+   full-precision filtered walk (inline with AdaptiveL, and multihop);
+8. kernel times against the plain versions at the main path's shapes, on
    random tables of the main path's size, where each kernel is also held
    bitwise against its plain version: K1 on the dp=64 and dp=128 tables,
    K2 on the dp=128 table (both past 2^31 words at 1M rows).
+
+Phase 6 also traces one filtered walk call with torch.profiler and splits
+its device time between K1, the matched-list merges and the rest.
 
 Then a JSON line with the kernels, the `nvidia-smi` name/power-limit line,
 and last the result line `{"ok": true, "device": {...}}`.  Any failed phase
@@ -46,10 +60,50 @@ NQ = 8192
 K = 10
 L_SWEEP = (16, 20, 24, 30, 40)
 TARGET_RECALL = 0.95
+# the filtered family of `bench.py`: predicates, and the walk's settings
+FILTER_PREDS = ("cat0", "cat7", "cat0 | cat1")
+FILTER_KW = dict(l_search=90, mode="packed", max_hops=16)
+FULL_NQ = 1024
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def sync(torch, device) -> None:
+    """Wait for the card (a no-op on the CPU, where the phases rehearse)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def bench_cats(n: int):
+    """The category of each point, as `bench.py` assigns it: one of 32
+    labels with zipf-like weights 1/rank^0.8, seeded."""
+    import numpy as np
+
+    rng = np.random.default_rng(0xF117)
+    weights = 1.0 / np.arange(1, 33) ** 0.8
+    return rng.choice(32, size=n, p=weights / weights.sum())
+
+
+def pred_mask(cats, pred: str):
+    """[n] bool: the points that satisfy one of FILTER_PREDS."""
+    if pred == "cat0 | cat1":
+        return (cats == 0) | (cats == 1)
+    return cats == int(pred[3:])
+
+
+def check_filtered_ids(ids, mask, what: str) -> None:
+    """Every returned id carries the predicate's label; no row repeats an
+    id."""
+    import numpy as np
+
+    got = ids[ids >= 0]
+    if not mask[got].all():
+        raise RuntimeError(f"{what}: {int((~mask[got]).sum())} results miss the predicate")
+    s = np.sort(ids, axis=1)
+    if ((s[:, 1:] == s[:, :-1]) & (s[:, 1:] >= 0)).any():
+        raise RuntimeError(f"{what}: a result row holds a duplicate id")
 
 
 def rand_words(torch, n_rows: int, gen, device):
@@ -129,21 +183,30 @@ def check_block_patch(torch, device) -> int:
 
 def check_small_input(torch, device) -> float:
     """The packed path on a small input: one index built on the card,
-    searched there (kernels) and, carried to the CPU by `convert.py`, with
-    the plain versions.  Returns the share of identical result ids, which
-    must be >= 0.99 (the float32 query projection may round an int8 query
-    code differently on the two devices)."""
+    searched there (kernels) and, carried to the CPU by `convert.py` with
+    its labels, with the plain versions.  Compared: the packed search, and
+    the filtered search by the packed walk (the walk forced with
+    scan_threshold=0), the posting-list scan and the full inline route.
+    Each must give identical ids for >= 99% of (query, rank) entries (the
+    float32 query projection may round an int8 query code differently on
+    the two devices, and near-tied float distances may swap).  Returns the
+    smallest share."""
     import dataclasses
+
+    import numpy as np
 
     from diskann_tpu_torch import GraphConfig, GraphIndex
     from diskann_tpu_torch.bench.harness import make_clustered
     from diskann_tpu_torch.convert import graph_index_from_arrays
 
-    x, q = make_clustered(1, 20_000, 512, D, n_clusters=256, sigma=0.35)
+    n = 20_000
+    x, q = make_clustered(1, n, 512, D, n_clusters=256, sigma=0.35)
     cfg = GraphConfig(max_degree=32, l_build=64, beam_width=4)
     card = GraphIndex.build(torch.from_numpy(x).to(device), cfg,
                             insert_batch_size=4096, packed_dp=64)
     card.attach_packed(dp=128)
+    cats = bench_cats(n)
+    card.attach_labels([[f"cat{c}"] for c in cats])
     pk = card.packed
     host = graph_index_from_arrays(
         config=dataclasses.asdict(cfg),
@@ -152,22 +215,44 @@ def check_small_input(torch, device) -> float:
                    ("proj", "pscale", "pbias2", "self_codes", "self_aux", "rows")},
                 "r_pack": pk.r_pack},
         n=card.n,
+        labels={"vocab": card.labels.vocab,
+                "bits": card.labels.bits.cpu().numpy().view(np.uint32)},
     )
-    kw = dict(l_search=24, beam_width=4, rerank_l=12, max_hops=6)
-    _, ids_card, _ = card.search(q, K, **kw)
-    _, ids_host, _ = host.search(q, K, **kw)
-    share = float((ids_card == ids_host).mean())
-    log(f"[small] n=20000 packed path on the card vs the same index on the CPU "
-        f"(plain versions): identical ids {share:.4f} (need >= 0.99)")
-    if share < 0.99:
-        raise RuntimeError(f"card and CPU searches disagree: {share:.4f} identical ids")
-    return share
+    walk = dict(FILTER_KW, query_dtype=np.float16)
+    cases = [
+        ("packed search", None, dict(l_search=24, beam_width=4, mode="packed",
+                                     rerank_l=12, max_hops=6), "walk"),
+        ("filtered packed walk cat0", "cat0", dict(walk, scan_threshold=0), "walk"),
+        ("filtered scan cat7", "cat7", walk, "scan"),
+        ("filtered full inline cat0", "cat0",
+         dict(l_search=90, mode="full", scan_threshold=0), "walk"),
+    ]
+    worst = 1.0
+    for name, pred, kw, route in cases:
+        if pred is None:
+            _, ids_card, st = card.search(q, K, **kw)
+            _, ids_host, _ = host.search(q, K, **kw)
+        else:
+            _, ids_card, st = card.search_filtered(q, pred, K, **kw)
+            _, ids_host, _ = host.search_filtered(q, pred, K, **kw)
+            check_filtered_ids(ids_card, pred_mask(cats, pred), f"[small] {name}")
+        took = "scan" if int(st.hops.max()) == 0 else "walk"
+        share = float((ids_card == ids_host).mean())
+        log(f"[small] n={n} {name} ({took}) on the card vs the same index on the "
+            f"CPU (plain versions): identical ids {share:.4f} (need >= 0.99)")
+        if took != route:
+            raise RuntimeError(f"[small] {name} took the {took}, not the {route}")
+        if share < 0.99:
+            raise RuntimeError(f"card and CPU disagree on {name}: {share:.4f} identical ids")
+        worst = min(worst, share)
+    return worst
 
 
-def run_main_path(n: int, device, *, search_batch: int = NQ) -> dict:
+def run_main_path(n: int, device, *, search_batch: int = NQ):
     """Data, groundtruth, packed build, dp=128 re-attach and the L sweep.
-    Returns the measured figures; raises if no L reaches the recall
-    target or a result is malformed."""
+    Returns (the measured figures, the index, the queries on the device,
+    the exact top-10 ids); raises if no L reaches the recall target or a
+    result is malformed."""
     import numpy as np
     import torch
 
@@ -175,16 +260,12 @@ def run_main_path(n: int, device, *, search_batch: int = NQ) -> dict:
     from diskann_tpu_torch.bench.harness import make_clustered
     from diskann_tpu_torch.bench.recall import knn_recall
 
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
     out: dict = {"n": n, "nq": NQ}
     t0 = time.time()
     x, q = make_clustered(0, n, NQ, D, n_clusters=4096, sigma=0.35)
     xd = torch.from_numpy(x).to(device)
     qd = torch.from_numpy(q).to(device)
-    sync()
+    sync(torch, device)
     out["data_s"] = time.time() - t0
     del x
     log(f"[main] data n={n} d={D} nq={NQ}: {out['data_s']:.1f}s")
@@ -204,7 +285,7 @@ def run_main_path(n: int, device, *, search_batch: int = NQ) -> dict:
     idx = GraphIndex.build(xd, cfg, insert_batch_size=8192,
                            search_batch_size=search_batch, build_mode="packed",
                            packed_dp=64, build_backedge_src_cap=64)
-    sync()
+    sync(torch, device)
     out["build_s"] = time.time() - t0
     out["build_points_per_s"] = n / out["build_s"]
     del xd
@@ -221,7 +302,7 @@ def run_main_path(n: int, device, *, search_batch: int = NQ) -> dict:
 
     t0 = time.time()
     idx.attach_packed(dp=128)
-    sync()
+    sync(torch, device)
     out["attach_s"] = time.time() - t0
     log(f"[main] attach_packed dp=128 (r_pack={idx.packed.r_pack}, "
         f"nwr={idx.packed.nwr}, table {idx.packed.rows.numel() * 4 / 1e9:.2f} GB): "
@@ -234,10 +315,10 @@ def run_main_path(n: int, device, *, search_batch: int = NQ) -> dict:
         dists, ids, stats = idx.search(qd, K, **kw)       # warm-up
         dts = []
         for _ in range(2):
-            sync()
+            sync(torch, device)
             t0 = time.time()
             dists, ids, stats = idx.search(qd, K, **kw)
-            sync()
+            sync(torch, device)
             dts.append(time.time() - t0)
         if ids.shape != (NQ, K) or not np.isfinite(dists[ids >= 0]).all():
             raise RuntimeError(f"L={l}: malformed search result")
@@ -255,6 +336,170 @@ def run_main_path(n: int, device, *, search_batch: int = NQ) -> dict:
     best = max(p["recall"] for p in sweep)
     if best < TARGET_RECALL:
         raise RuntimeError(f"no L reached recall@{K} >= {TARGET_RECALL} (best {best:.4f})")
+    return out, idx, qd, gt
+
+
+def run_filtered(idx, qd, k1) -> tuple[list, dict]:
+    """The filtered family of `bench.py` on the main path's index.  Returns
+    (one row per predicate, the filtered groundtruth per predicate); raises
+    unless each predicate takes its route at its recall bar and honours
+    the predicate."""
+    import numpy as np
+    import torch
+
+    from diskann_tpu_torch import FlatIndex
+    from diskann_tpu_torch.bench.recall import knn_recall
+
+    device = qd.device
+    cats = bench_cats(idx.n)
+    t0 = time.time()
+    idx.attach_labels([[f"cat{c}"] for c in cats])
+    log(f"[filtered] attach_labels (32 zipf-weighted categories): {time.time() - t0:.1f}s")
+    kw = dict(FILTER_KW, query_dtype=np.float16)
+    rows, gts = [], {}
+    for pred in FILTER_PREDS:
+        mask = pred_mask(cats, pred)
+        members = np.nonzero(mask)[0]
+        sub = FlatIndex(idx.state.vectors[torch.from_numpy(members).to(device)])
+        _, local = sub.search(qd, K)
+        del sub
+        gts[pred] = members[local]
+        idx.search_filtered(qd, pred, K, **kw)                # warm-up
+        dts, calls = [], []
+        for _ in range(2):
+            sync(torch, device)
+            before = k1.launches
+            t0 = time.time()
+            dists, ids, stats = idx.search_filtered(qd, pred, K, **kw)
+            sync(torch, device)
+            dts.append(time.time() - t0)
+            calls.append(k1.launches - before)
+        if ids.shape != (NQ, K) or not np.isfinite(dists[ids >= 0]).all():
+            raise RuntimeError(f"filtered {pred!r}: malformed result")
+        check_filtered_ids(ids, mask, f"filtered {pred!r}")
+        route = "scan" if int(stats.hops.max()) == 0 else "walk"
+        row = {"predicate": pred, "members": len(members),
+               "recall": knn_recall(ids, gts[pred], K), "qps": NQ / min(dts),
+               "qps_reps": [NQ / t for t in dts], "route": route,
+               "mean_hops": float(stats.hops.mean()), "k1_launches": calls[-1]}
+        rows.append(row)
+        log(f"[filtered] {pred!r} ({len(members)} members): recall@{K}="
+            f"{row['recall']:.4f} qps={row['qps']:.0f} "
+            f"(reps {[round(v) for v in row['qps_reps']]}) route={route} "
+            f"mean_hops={row['mean_hops']:.2f} k1_launches={row['k1_launches']}")
+        want_route, bar = ("scan", 0.999) if pred == "cat7" else ("walk", TARGET_RECALL)
+        if route != want_route or row["recall"] < bar:
+            raise RuntimeError(f"filtered {pred!r}: route {route} recall "
+                               f"{row['recall']:.4f}, want {want_route} >= {bar}")
+        if route == "walk" and row["k1_launches"] < 1:
+            raise RuntimeError(f"filtered {pred!r}: the walk never launched K1")
+    return rows, gts
+
+
+def run_full_route(idx, qd, gt, gt_cat0) -> dict:
+    """The full-precision route on the first FULL_NQ queries: unfiltered
+    search, the inline filtered walk with AdaptiveL, and multihop.  Raises
+    unless the first two reach the recall target and the filtered results
+    honour their predicate."""
+    import numpy as np
+    import torch
+
+    from diskann_tpu_torch.bench.recall import knn_recall
+
+    device = qd.device
+    q = qd[:FULL_NQ]
+    mask = pred_mask(bench_cats(idx.n), "cat0")
+    calls = [
+        ("search", None, gt[:FULL_NQ], dict(mode="full", l_search=40, beam_width=4)),
+        ("inline", "cat0", gt_cat0[:FULL_NQ],
+         dict(mode="full", l_search=90, scan_threshold=0)),
+        ("multihop", "cat0", gt_cat0[:FULL_NQ],
+         dict(mode="full", l_search=90, method="multihop")),
+    ]
+    out = {}
+    for name, pred, want, kw in calls:
+        sync(torch, device)
+        t0 = time.time()
+        if pred is None:
+            dists, ids, stats = idx.search(q, K, **kw)
+        else:
+            dists, ids, stats = idx.search_filtered(q, pred, K, **kw)
+        sync(torch, device)
+        dt = time.time() - t0
+        if ids.shape != (FULL_NQ, K) or not np.isfinite(dists[ids >= 0]).all():
+            raise RuntimeError(f"full route {name}: malformed result")
+        if pred is not None:
+            check_filtered_ids(ids, mask, f"full route {name}")
+        r = knn_recall(ids, want, K)
+        out[name] = {"recall": r, "s": dt, "mean_hops": float(stats.hops.mean()),
+                     "mean_cmps": float(stats.cmps.mean())}
+        log(f"[full] {name} {pred or ''} {kw}: recall@{K}={r:.4f} {dt:.3f}s "
+            f"mean_hops={out[name]['mean_hops']:.1f} mean_cmps={out[name]['mean_cmps']:.0f}")
+        if name != "multihop" and r < TARGET_RECALL:
+            raise RuntimeError(f"full route {name}: recall {r:.4f} < {TARGET_RECALL}")
+    if device.type == "cuda":
+        out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+        log(f"[full] max_memory_allocated after the phase {out['peak_gib']:.2f} GiB")
+    return out
+
+
+def profile_filtered_walk(idx, qd) -> dict:
+    """torch.profiler over one filtered walk call ("cat0"): device time of
+    K1, of the matched-list merges (`search._match_merge`, traced as one
+    range) and of the rest, and the device's idle share of the call."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from diskann_tpu_torch.graph import search as search_mod
+
+    merge = search_mod._match_merge
+
+    def traced(*a, **kw):
+        with record_function("match_merge"):
+            return merge(*a, **kw)
+
+    kw = dict(FILTER_KW, query_dtype=np.float16)
+    idx.search_filtered(qd, "cat0", K, **kw)
+    sync(torch, qd.device)
+    search_mod._match_merge = traced
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            idx.search_filtered(qd, "cat0", K, **kw)
+            sync(torch, qd.device)
+            wall = time.time() - t0
+    finally:
+        search_mod._match_merge = merge
+
+    def dev(e, total=False):
+        name = "device_time_total" if total else "self_device_time_total"
+        old = "cuda_time_total" if total else "self_cuda_time_total"
+        return getattr(e, name, getattr(e, old, 0)) / 1e3
+
+    ev = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    # kernels are the device-side events; the range also shows there as one
+    # span from its first kernel to its last, gaps included
+    kern = [e for e in ev if e.device_type == cuda and e.key != "match_merge"]
+    busy = sum(dev(e) for e in kern)
+    k1 = sum(dev(e) for e in kern if "fatrow_expand" in e.key)
+    mm = sum(dev(e, total=True) for e in ev
+             if e.key == "match_merge" and e.device_type != cuda)
+    span = sum(dev(e, total=True) for e in ev
+               if e.key == "match_merge" and e.device_type == cuda)
+    top = sorted(kern, key=dev, reverse=True)[:10]
+    out = {"wall_ms": wall * 1e3, "device_ms": busy, "k1_ms": k1,
+           "match_merge_ms": mm, "match_merge_span_ms": span,
+           "rest_ms": busy - k1 - mm,
+           "idle_share": 1 - busy / (wall * 1e3) if wall > 0 else None,
+           "top": [(e.key[:70], dev(e), e.count) for e in top]}
+    log(f"[profile] filtered walk 'cat0' ({NQ} queries, L=90, max_hops=16): wall "
+        f"{out['wall_ms']:.1f} ms, device busy {busy:.2f} ms (idle share "
+        f"{out['idle_share']:.3f}): K1 {k1:.2f} ms, matched-list merges {mm:.2f} ms "
+        f"(device span {span:.2f} ms), rest {out['rest_ms']:.2f} ms")
+    for key, ms, cnt in out["top"]:
+        log(f"[profile]   {ms:8.3f} ms  x{cnt:<5d} {key}")
     return out
 
 
@@ -425,19 +670,32 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats(device)
     k1.launches = 0
     k2.launches = 0
-    main_out = run_main_path(args.n, device)
+    main_out, idx, qd, gt = run_main_path(args.n, device)
     launches = {"fatrow_expand": k1.launches, "block_patch": k2.launches}
     peak = torch.cuda.max_memory_allocated(device)
     log(f"[main] kernel launches on the main path: {launches}; "
         f"max_memory_allocated {peak / 2**30:.2f} GiB")
     if min(launches.values()) == 0:
         raise RuntimeError(f"a kernel of the main path never launched: {launches}")
+
+    # the filtered path runs K1 only: K2 writes the table it reads
+    k1.launches = 0
+    k2.launches = 0
+    filt_rows, filt_gt = run_filtered(idx, qd, k1)
+    filt_launches = {"fatrow_expand": k1.launches, "block_patch": k2.launches}
+    log(f"[filtered] kernel launches on the filtered path: {filt_launches}")
+    if filt_launches["fatrow_expand"] == 0:
+        raise RuntimeError("K1 never launched on the filtered path")
+    profiled = profile_filtered_walk(idx, qd)
+    full = run_full_route(idx, qd, gt, filt_gt["cat0"])
+    del idx, qd
     torch.cuda.empty_cache()
 
     times = time_kernels(torch, device, args.n)
     kernels = [
         {"name": "fatrow_expand", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": launches["fatrow_expand"],
+         "filtered_launches": filt_launches["fatrow_expand"],
          "max_abs_err": max(k1_err, times["k1_err"]),
          "ms": times["k1_rp84_dp128"]["ms"],
          "plain_ms": times["k1_rp84_dp128"]["plain_ms"],
@@ -455,6 +713,9 @@ def main(argv=None) -> int:
     summary["peak_gib"] = peak / 2**30
     summary["sweep"] = [{k: p[k] for k in ("l", "recall", "qps", "mean_hops")}
                         for p in main_out["sweep"]]
+    summary["filtered"] = filt_rows
+    summary["full_route"] = full
+    summary["filtered_profile"] = profiled
     log("[summary] " + json.dumps(summary))
     print(json.dumps({"kernels": kernels}))
     print(smi)

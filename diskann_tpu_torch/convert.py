@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from diskann_tpu_torch.filters.labels import LabelSet
 from diskann_tpu_torch.graph.config import GraphConfig
 from diskann_tpu_torch.graph.index import GraphIndex
 from diskann_tpu_torch.graph.packed import PackedState, n_wrows
@@ -43,6 +44,7 @@ def graph_index_from_arrays(
     packed: dict | None,
     n: int,
     n_deleted: int = 0,
+    labels: dict | None = None,
     device=None,
     **index_kwargs,
 ) -> GraphIndex:
@@ -51,8 +53,10 @@ def graph_index_from_arrays(
     config: the `GraphConfig` fields (``metric`` as a `Metric` or its
     value); graph: the `GraphArrays` fields as numpy arrays; packed: the
     `PackedState` fields as numpy arrays plus ``r_pack``, or None;
-    n, n_deleted: the index's counters.  index_kwargs go to `GraphIndex`
-    (batch sizes, backedge cap)."""
+    n, n_deleted: the index's counters; labels: ``{"vocab": dict, "bits":
+    [cap, n_words] uint32 array}`` of the reference's `LabelSet`, or None
+    (the words are carried as int32 with the same bits).  index_kwargs go
+    to `GraphIndex` (batch sizes, backedge cap)."""
     cfg = dict(config)
     cfg["metric"] = Metric(cfg["metric"])
     cfg = GraphConfig(**cfg)
@@ -80,6 +84,13 @@ def graph_index_from_arrays(
                 f"{cap} (want rows {want})"
             )
         idx.packed = p
+    if labels is not None:
+        bits = np.ascontiguousarray(labels["bits"], np.uint32)
+        if bits.ndim != 2 or bits.shape[0] != cap:
+            raise ValueError(f"label bits {bits.shape} do not match capacity {cap}")
+        ls = LabelSet(cap, labels["vocab"], bits.shape[1], device=device)
+        ls.bits = torch.from_numpy(bits.view(np.int32).copy()).to(device)
+        idx.labels = ls
     idx.n = int(n)
     idx.n_deleted = int(n_deleted)
     return idx

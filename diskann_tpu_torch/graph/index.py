@@ -2,10 +2,13 @@
 surface of `diskann_tpu/graph/index.py`).
 
 Ported: packed build (`build(..., build_mode="packed")`, `insert`), the
-packed re-attach (`attach_packed`) and packed search (`search(...,
-mode="packed")`: router entry points, packed hop loop, full-precision
-rerank).  Every tensor lives on the index's ``device``; the host only
-orchestrates batches, capacity and start points.
+packed re-attach (`attach_packed`), search in modes "full" (full-precision
+walk) and "packed" (router entry points, packed hop loop, full-precision
+rerank), and label-filtered search (`attach_labels`, `search_filtered`:
+the exact posting-list scan, the packed inline-beta walk and the
+full-precision inline walk with AdaptiveL resume or multihop).  Every
+tensor lives on the index's ``device``; the host only orchestrates
+batches, capacity and start points.
 """
 
 from __future__ import annotations
@@ -15,14 +18,18 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from diskann_tpu_torch.filters import LabelSet, compile_accept, parse_predicate
 from diskann_tpu_torch.graph import packed as packed_mod
 from diskann_tpu_torch.graph import state as graph_state
 from diskann_tpu_torch.graph.build import insert_batch
 from diskann_tpu_torch.graph.config import GraphConfig
 from diskann_tpu_torch.graph.scorers import (
-    packed_router_starts, packed_scorer, quantize_queries, smallest_ids,
+    full_precision_scorer, packed_router_starts, packed_scorer,
+    quantize_queries, smallest_ids,
 )
-from diskann_tpu_torch.graph.search import beam_search_scored
+from diskann_tpu_torch.graph.search import (
+    beam_search, beam_search_scored, grow_resume_state, search_geometry,
+)
 from diskann_tpu_torch.ops.distance import Metric, distance_to_set, squared_norms
 from diskann_tpu_torch.ops.topk import sort_with
 
@@ -30,6 +37,10 @@ from diskann_tpu_torch.ops.topk import sort_with
 # fat rows rebuilt per refresh_rows call in attach_packed: bounds the
 # [rows, r_pack, dp] code gather (352 MB at dp=128)
 _REFRESH_ROWS = 1 << 15
+
+# query wire dtypes of `query_dtype` (the queries are rounded through the
+# dtype, then computed on in float32)
+_QUERY_DTYPES = {"float16": torch.float16, "float32": torch.float32}
 
 
 class SearchStats(NamedTuple):
@@ -71,6 +82,45 @@ def _filter_deleted(dists, ids, valid, k: int):
     return out_d[:, :k], out_i[:, :k]
 
 
+def _member_scan(queries, member_ids, vectors, sq_norms, metric: Metric, k: int):
+    """Exact top-k over an explicit member set (-1 padded): the posting-list
+    evaluation of selective filtered queries.  A stable sort on distance
+    keeps equal distances in member order."""
+    cap = vectors.shape[0]
+    ok = member_ids >= 0
+    safe = member_ids.long().clamp(0, cap - 1)
+    qsq = squared_norms(queries) if metric.needs_norms else None
+    d = distance_to_set(queries, vectors[safe], metric,
+                        x_sq_norms=sq_norms[safe], q_sq_norms=qsq)
+    d, order = torch.sort(torch.where(ok[None, :], d, float("inf")), dim=1,
+                          stable=True)
+    kk = min(k, d.shape[1])
+    b = d.shape[0]
+    out_d = torch.full((b, k), float("inf"), device=d.device)
+    out_i = torch.full((b, k), -1, dtype=torch.int32, device=d.device)
+    out_d[:, :kk] = d[:, :kk]
+    out_i[:, :kk] = member_ids[order[:, :kk]]
+    return out_d, torch.where(torch.isfinite(out_d), out_i, -1)
+
+
+def _router_dist(queries, rv, rsq, metric: Metric):
+    """[B, d] queries x [S, d] router rows -> [B, S] float32 distances (the
+    L2 form for every metric but inner product)."""
+    q = queries.float()
+    dots = q @ rv.float().T
+    if metric == Metric.InnerProduct:
+        return -dots
+    return (q * q).sum(-1, keepdim=True) + rsq[None, :] - 2.0 * dots
+
+
+def _router_topk_full_pre(rv, rsq, router_ids, queries, metric: Metric,
+                          n_start: int):
+    """Full-precision router over pre-gathered rows: the ``n_start``
+    nearest router ids per query."""
+    return smallest_ids(_router_dist(queries, rv, rsq, metric), router_ids,
+                        n_start)
+
+
 def _router_topk_packed_pre(rc, raux, proj, pscale, pbias2, router_ids,
                             queries, metric: Metric, n_start: int,
                             compute: str = "int8"):
@@ -93,6 +143,23 @@ def _router_topk_packed_pre(rc, raux, proj, pscale, pbias2, router_ids,
         qsq = (qb * qb).sum(-1, keepdim=True)
         d = qsq.bfloat16() + raux[None, :].bfloat16() - 2.0 * dots
     return smallest_ids(d, router_ids, n_start)
+
+
+def _round_queries(q: torch.Tensor, query_dtype) -> torch.Tensor:
+    """Round float32 queries through ``query_dtype`` (np.float16) and back,
+    as the reference's compressed query upload does; None keeps them."""
+    if query_dtype is None:
+        return q
+    name = np.dtype(query_dtype).name
+    if name not in _QUERY_DTYPES:
+        raise NotImplementedError(
+            f"query_dtype={name!r}: only float16 and float32 are ported"
+        )
+    return q.to(_QUERY_DTYPES[name]).float()
+
+
+def _stats(cmps, hops, ids) -> SearchStats:
+    return SearchStats(cmps=cmps, hops=hops, result_count=(ids >= 0).sum(axis=1))
 
 
 class GraphIndex:
@@ -123,6 +190,7 @@ class GraphIndex:
         self.n = 0
         self.n_deleted = 0
         self.packed: packed_mod.PackedState | None = None
+        self.labels: LabelSet | None = None
         self.state = graph_state.alloc(
             _round_up(capacity, insert_batch_size), dim,
             self.config.max_degree_with_slack, device=self.device,
@@ -131,6 +199,7 @@ class GraphIndex:
         self._auto_start: torch.Tensor | None = None
         self._router_ids: torch.Tensor | None = None
         self._router_rows_cache: tuple | None = None
+        self._pred_count_cache: dict = {}
 
     @property
     def n_live(self) -> int:
@@ -184,6 +253,10 @@ class GraphIndex:
         self.state = graph_state.grow(self.state, new_cap)
         if self.packed is not None:
             self.packed = packed_mod.grow_packed(self.packed, new_cap)
+        if self.labels is not None:
+            self.labels.bits = torch.nn.functional.pad(
+                self.labels.bits, (0, 0, 0, new_cap - cap))
+            self.labels.capacity = new_cap
 
     def _start(self) -> torch.Tensor:
         """The medoid start point, [1] int32 (-1 while the index is empty)."""
@@ -288,6 +361,12 @@ class GraphIndex:
         self.packed = p
 
     # ----------------------------------------------------------------- search
+    def _queries(self, queries, query_dtype=None) -> torch.Tensor:
+        """[B, d] float32 queries on the index's device, rounded through
+        ``query_dtype`` (`_round_queries`)."""
+        q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
+        return _round_queries(q[None] if q.dim() == 1 else q, query_dtype)
+
     def _router_ids_live(self) -> torch.Tensor | None:
         """The sampled live-id router set (None when the router is off or
         the index is too small)."""
@@ -305,17 +384,30 @@ class GraphIndex:
             )
         return self._router_ids
 
-    def _router_rows(self) -> tuple:
-        """Router code rows gathered once per (packed layout, id set)."""
+    def _router_rows(self, packed: bool) -> tuple:
+        """Router rows gathered once per (source tensors, id set): packed
+        code rows, or full-precision vectors and norms."""
         rid = self._router_ids
+        src = self.packed if packed else self.state
         c = self._router_rows_cache
-        if c is not None and c[0] is self.packed and c[1] is rid:
+        if c is not None and c[0] is src and c[1] is rid:
             return c[2]
-        pk = self.packed
-        rows = (pk.self_codes[rid.long()], pk.self_aux[rid.long()],
-                pk.proj, pk.pscale, pk.pbias2)
-        self._router_rows_cache = (pk, rid, rows)
+        if packed:
+            pk = self.packed
+            rows = (pk.self_codes[rid.long()], pk.self_aux[rid.long()],
+                    pk.proj, pk.pscale, pk.pbias2)
+        else:
+            rows = (self.state.vectors[rid.long()], self.state.sq_norms[rid.long()])
+        self._router_rows_cache = (src, rid, rows)
         return rows
+
+    def _n_start(self, router_ids, router_starts) -> int:
+        """Router entry points per query (None/0 = the config default),
+        capped at the router table size."""
+        ns = router_starts if router_starts else self.config.router_starts
+        if ns < 1:
+            raise ValueError(f"router_starts must be >= 1, got {ns}")
+        return min(ns, int(router_ids.shape[0])) if router_ids is not None else ns
 
     def search(
         self,
@@ -324,51 +416,49 @@ class GraphIndex:
         *,
         l_search: int | None = None,
         beam_width: int | None = None,
-        mode: str = "packed",
+        mode: str = "full",
         rerank_l: int | None = None,
         max_hops: int | None = None,
+        query_dtype=None,
         router_starts: int | None = None,
     ) -> tuple[np.ndarray, np.ndarray, SearchStats]:
-        """k-NN search over the packed layout (only mode="packed" is
-        ported).  Returns (dists [B,k], ids [B,k], stats) as numpy arrays.
+        """k-NN search.  Returns (dists [B,k], ids [B,k], stats) as numpy
+        arrays.
 
-        rerank_l: rerank only the top `rerank_l` traversal candidates at
-        full precision.  max_hops: cap the hop loop.  router_starts:
-        per-query router entry points (None = config default)."""
-        if mode != "packed":
+        mode="full": full-precision walk with the scored-id ring.
+        mode="packed": packed int8 walk (`fatrow_expand`), then a
+        full-precision rerank of the top `rerank_l` candidates.
+        max_hops: cap the hop loop.  query_dtype: np.float16 rounds the
+        queries through float16 first.  router_starts: per-query router
+        entry points (None = config default)."""
+        if mode not in ("full", "packed"):
             raise NotImplementedError(f"search mode {mode!r} is not ported")
-        if self.packed is None:
+        if mode == "packed" and self.packed is None:
             raise ValueError("mode='packed' needs build_mode='packed' or attach_packed()")
-        q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
-        if q.dim() == 1:
-            q = q[None]
+        q = self._queries(queries, query_dtype)
         l = l_search if l_search is not None else max(k, self.config.l_build)
         l = max(l, k)
         w = beam_width if beam_width is not None else self.config.beam_width
         router_ids = self._router_ids_live()
-        router_rows = self._router_rows() if router_ids is not None else None
+        n_start = self._n_start(router_ids, router_starts)
+        router_rows = (self._router_rows(mode == "packed")
+                       if router_ids is not None else None)
+        batch = self._packed_search_batch if mode == "packed" else self._full_search_batch
         parts = [
-            self._packed_search_batch(q[off:off + self.search_batch_size],
-                                      k, l, w, rerank_l, max_hops,
-                                      router_ids, router_rows, router_starts)
+            batch(q[off:off + self.search_batch_size], k, l, w, rerank_l,
+                  max_hops, router_ids, router_rows, n_start)
             for off in range(0, q.shape[0], self.search_batch_size)
         ]
         fd, fi, cmps, hops = (torch.cat(t).cpu().numpy() for t in zip(*parts))
-        stats = SearchStats(cmps=cmps, hops=hops,
-                            result_count=(fi >= 0).sum(axis=1))
-        return fd, fi, stats
+        return fd, fi, _stats(cmps, hops, fi)
 
     def _packed_search_batch(self, q, k, l, w, rl, mh, router_ids,
-                             router_rows, router_starts):
+                             router_rows, n_start):
         """One query batch: router entry points, packed hop loop,
         full-precision rerank of the top `rl` candidates."""
         cfg = self.config
         metric = cfg.metric
-        n_start = router_starts if router_starts else cfg.router_starts
-        if n_start < 1:
-            raise ValueError(f"router_starts must be >= 1, got {n_start}")
         if router_ids is not None:
-            n_start = min(n_start, int(router_ids.shape[0]))
             st = _router_topk_packed_pre(
                 *router_rows, router_ids, q, metric, n_start,
                 compute=self.router_compute,
@@ -384,3 +474,249 @@ class GraphIndex:
         fd, fi = _rerank(res.ids[:, :rl_eff], q, self.state.vectors,
                          self.state.sq_norms, self.state.valid, metric, k)
         return fd, fi, res.cmps, res.hops
+
+    def _full_search_batch(self, q, k, l, w, rl, mh, router_ids, router_rows,
+                           n_start):
+        """One query batch of the full-precision walk (ring dedup, sized by
+        `GraphConfig.history_capacity`); `rl` is unused."""
+        cfg = self.config
+        st = (_router_topk_full_pre(*router_rows, router_ids, q, cfg.metric, n_start)
+              if router_ids is not None else self._start())
+        res = beam_search(
+            self.state.vectors, self.state.sq_norms, self.state.adjacency, st, q,
+            metric=cfg.metric, l_search=l, beam_width=w,
+            max_hops=mh or cfg.max_hops, history_capacity=cfg.history_capacity(l),
+        )
+        fd, fi = _filter_deleted(res.dists, res.ids, self.state.valid, k)
+        return fd, fi, res.cmps, res.hops
+
+    # ---------------------------------------------------------------- filters
+    def attach_labels(self, labels_per_point: list[list[str]]) -> None:
+        """Assign labels to points 0..len-1 (JSONL-ingestion shape)."""
+        self.labels = LabelSet.from_lists(
+            labels_per_point, capacity=self.state.capacity, device=self.device
+        )
+        # a new label set restarts at version 0, so the count cache keyed
+        # on the version must go with the old set
+        self._pred_count_cache = {}
+
+    def _accept_all(self, accept_fn) -> torch.Tensor:
+        """[cap] bool: the live ids that match (the posting list)."""
+        cap = self.state.capacity
+        ids = torch.arange(cap, dtype=torch.int32, device=self.device)
+        return accept_fn(self.labels.bits, ids, self.state.valid) & self.state.valid
+
+    def _predicate_count(self, predicate, accept_fn) -> int:
+        """|{live ids matching predicate}|, cached per (predicate, label
+        version, live set): one host sync per predicate, not per call."""
+        key = (repr(predicate), self.labels.version, self.n, self.n_deleted)
+        cnt = self._pred_count_cache.get(key)
+        if cnt is None:
+            cnt = int(self._accept_all(accept_fn).sum())
+            self._pred_count_cache = {key: cnt}   # keep it tiny
+        return cnt
+
+    def search_filtered(
+        self,
+        queries,
+        predicate,
+        k: int = 10,
+        *,
+        l_search: int | None = None,
+        beam_width: int | None = None,
+        filter_beta: float | None = None,
+        adaptive_l: bool = True,
+        max_l_scale: int = 8,
+        method: str = "inline",
+        scan_threshold: int | None = None,
+        mode: str = "full",
+        rerank_l: int | None = None,
+        max_hops: int | None = None,
+        query_dtype=None,
+    ):
+        """Label-filtered k-NN.  Returns (dists [B,k], ids [B,k], stats).
+
+        method="inline": one navigation walk over all nodes with matching
+        distances biased by beta (default 0.5), plus a matched-only result
+        list; AdaptiveL widens L when a query's list came back short.
+        method="multihop": accept-only navigation with a two-hop expansion
+        through rejected nodes (mode="full" only; the packed walk is
+        inline).  method="prefilter": always the exact posting-list scan.
+        scan_threshold: largest member count that takes the scan (default
+        max(4*l_search, 512, min(cap//16, 65536)) for inline); 0 forces
+        the walk.
+        mode="packed": the production walk — router entry points, packed
+        int8 hops with the inline filter, full-precision rerank of the top
+        `rerank_l` matches; `max_hops` and `query_dtype` apply here.  As
+        in the reference, the scan and the full route read the float32
+        queries, and the full route walks up to `config.max_hops`."""
+        if self.labels is None:
+            raise ValueError("attach_labels first")
+        if method not in ("inline", "multihop", "prefilter"):
+            raise ValueError(f"unknown method {method!r}")
+        if mode not in ("full", "packed"):
+            raise NotImplementedError(f"filtered mode {mode!r} is not ported")
+        if isinstance(predicate, str):
+            predicate = parse_predicate(predicate)
+        accept_fn = compile_accept(predicate, self.labels.vocab, self.state.capacity)
+        beta = filter_beta if filter_beta is not None else 0.5
+        q = self._queries(queries)
+        cfg = self.config
+        l0 = l_search if l_search is not None else max(k, cfg.l_build)
+        w = beam_width if beam_width is not None else cfg.beam_width
+
+        # ---- selective predicates: the exact posting-list scan ----
+        cnt = None
+        if method in ("inline", "prefilter"):
+            cnt = self._predicate_count(predicate, accept_fn)
+            cap = self.state.capacity
+            if scan_threshold is not None:
+                threshold = scan_threshold
+            elif method == "inline":
+                threshold = max(4 * l0, 512, min(cap // 16, 1 << 16))
+            else:
+                threshold = cap
+            if cnt <= threshold:
+                return self._scan_filtered(q, accept_fn, k, cnt)
+
+        if mode == "packed":
+            if self.packed is None:
+                raise ValueError("attach_packed first for mode='packed'")
+            live = max(self.n_live, 1)
+            return self._search_filtered_packed(
+                _round_queries(q, query_dtype), accept_fn, k, l0, w,
+                max_hops or cfg.max_hops, beta, rerank_l or l0, adaptive_l,
+                max_l_scale, selectivity=cnt / live if cnt is not None else None,
+            )
+        return self._search_filtered_full(q, accept_fn, k, l0, w, beta, method,
+                                          adaptive_l, max_l_scale)
+
+    def _scan_filtered(self, q, accept_fn, k: int, cnt: int):
+        """Exact top-k over the predicate's members, padded with -1 to a
+        power of two >= 64; queries go in chunks that keep the [chunk,
+        members] distance matrix near 2^27 entries."""
+        members = torch.nonzero(self._accept_all(accept_fn)).squeeze(1)
+        pad = max(1 << int(np.ceil(np.log2(max(members.shape[0], 1)))), 64)
+        mem = torch.full((pad,), -1, dtype=torch.int32, device=self.device)
+        mem[: members.shape[0]] = members.to(torch.int32)
+        b = q.shape[0]
+        qc = max(min(b, (1 << 27) // pad), 64)
+        parts = [_member_scan(q[off:off + qc], mem, self.state.vectors,
+                              self.state.sq_norms, self.config.metric, k)
+                 for off in range(0, b, qc)]
+        fd, fi = (torch.cat(t).cpu().numpy() for t in zip(*parts))
+        return fd, fi, _stats(np.full((b,), cnt, np.int32),
+                              np.zeros((b,), np.int32), fi)
+
+    def _search_filtered_packed(self, q, accept_fn, k, l, w, mh, beta, rl,
+                                adaptive_l, max_l_scale, selectivity=None):
+        """The production filtered walk, sub-batched like `search`.
+
+        selectivity (the matched share of live points) widens the first
+        pass: a 1-6% predicate fills the matched list with plausible but
+        wrong results, so the found < k retry would never fire.  AdaptiveL
+        then walks only the short queries again at max_l_scale x L and
+        writes them back to their rows."""
+        if selectivity is not None and selectivity > 0:
+            if selectivity < 0.012:
+                scale = min(4, max_l_scale)
+            elif selectivity < 0.06:
+                scale = min(2, max_l_scale)
+            else:
+                scale = 1
+            if scale > 1:
+                l = min(l * scale, 1024)
+                rl = min(rl * scale, l)
+                mh = min(mh * scale, 48)
+        router_ids = self._router_ids_live()
+        n_start = self._n_start(router_ids, None)
+        router_rows = self._router_rows(True) if router_ids is not None else None
+        bs = self.search_batch_size
+
+        def run_pass(l_cur, rl_cur, qset):
+            parts = [
+                self._filtered_packed_batch(
+                    qset[off:off + bs], accept_fn, k, l_cur, w, mh, beta,
+                    rl_cur, router_ids, router_rows, n_start)
+                for off in range(0, qset.shape[0], bs)
+            ]
+            return [torch.cat(t) for t in zip(*parts)]
+
+        out_d, out_i, cmps, hops = run_pass(l, min(rl, l), q)
+        short = (out_i >= 0).sum(1) < k
+        if adaptive_l and max_l_scale > 1 and bool(short.any()):
+            l1 = min(l * max_l_scale, 1024)
+            d2, i2, c2, h2 = run_pass(l1, min(max(rl, k), l1), q[short])
+            out_d[short], out_i[short] = d2, i2
+            cmps[short] += c2
+            hops[short] += h2
+        fd, fi, cmps, hops = (t.cpu().numpy() for t in (out_d, out_i, cmps, hops))
+        return fd, fi, _stats(cmps, hops, fi)
+
+    def _filtered_packed_batch(self, q, accept_fn, k, l, w, mh, beta, rl,
+                               router_ids, router_rows, n_start):
+        """One query batch of the filtered walk: router entry points, packed
+        hops (K1) with the inline filter, rerank of the top `rl` matches."""
+        metric = self.config.metric
+        if router_ids is not None:
+            st = _router_topk_packed_pre(*router_rows, router_ids, q, metric,
+                                         n_start, compute=self.router_compute)
+        else:
+            st = self._start()
+        sdef, sdata = packed_scorer(self.packed, metric)
+        res = beam_search_scored(
+            sdef, sdata, self.state.adjacency, st, q,
+            l_search=l, beam_width=w, max_hops=mh, dedup="list",
+            expand_r=self.packed.r_pack, accept_fn=accept_fn,
+            accept_data=self.labels.bits, filter_beta=beta,
+        )
+        fd, fi = _rerank(res.match_i[:, :rl], q, self.state.vectors,
+                         self.state.sq_norms, self.state.valid, metric, k)
+        return fd, fi, res.cmps, res.hops
+
+    def _search_filtered_full(self, q, accept_fn, k, l0, w, beta, method,
+                              adaptive_l, max_l_scale):
+        """The full-precision filtered walk from the medoid, all queries in
+        one batch.  AdaptiveL resumes the first pass's scratch at a wider
+        window (grown list and ring, frontier re-seeded from the ring)
+        instead of searching again from the start."""
+        cfg = self.config
+        sdef, sdata = full_precision_scorer(self.state.vectors,
+                                            self.state.sq_norms, cfg.metric)
+        start = self._start()
+
+        def run(l, resume=None):
+            return beam_search_scored(
+                sdef, sdata, self.state.adjacency, start, q,
+                l_search=l, beam_width=w, max_hops=cfg.max_hops,
+                history_capacity=cfg.history_capacity(l),
+                accept_fn=accept_fn, accept_data=self.labels.bits,
+                filter_beta=beta, filter_mode=method,
+                resume_state=resume, return_state=True,
+                reseed_ring=resume is not None,
+            )
+
+        res, scratch = run(l0)
+        found = (res.match_i >= 0).sum(1)
+        if adaptive_l and bool((found < k).any()):
+            # specificity = matches found per node scored; rescale L
+            # log-style from it, never below l0
+            spec = max(float(found.sum()) / max(float(res.cmps.sum()), 1.0), 1e-4)
+            if spec >= 0.5:
+                scale = 1
+            elif spec >= 0.1:
+                scale = 2
+            else:
+                scale = min(int(2 ** int(np.ceil(-np.log10(spec)))), max_l_scale)
+            l1 = max(min(l0 * scale, 1024), l0)
+            if scale > 1 and l1 > l0:
+                l_tot, _, h_new = search_geometry(
+                    l_search=l1, reserve=0, beam_width=w,
+                    r=self.state.adjacency.shape[1], s=start.shape[-1],
+                    history_capacity=cfg.history_capacity(l1),
+                )
+                res, scratch = run(l1, resume=grow_resume_state(scratch, l_tot, h_new))
+        fd, fi = _filter_deleted(res.match_d, res.match_i, self.state.valid, k)
+        fi = fi.cpu().numpy()
+        return (fd.cpu().numpy(), fi,
+                _stats(res.cmps.cpu().numpy(), res.hops.cpu().numpy(), fi))

@@ -1,10 +1,11 @@
 """Scorers: the distance plug-in point of the search loop (PyTorch port of
-the packed pieces of `diskann_tpu/graph/scorers.py`).
+the full-precision and packed pieces of `diskann_tpu/graph/scorers.py`).
 
 A scorer is a `(ScorerDef, data)` pair: `ScorerDef` holds the callables,
-`data` the tensors.  Only the packed fat-row scorer is ported; it scores
-start points from the int8 self-codes and expands beam nodes through the
-`fatrow_expand` kernel.
+`data` the tensors.  Two are ported: the full-precision scorer gathers raw
+vectors and takes one float32 product per candidate set; the packed
+fat-row scorer scores start points from the int8 self-codes and expands
+beam nodes through the `fatrow_expand` kernel.
 
 Integer products: the reference asks XLA for int8 x int8 -> int32 products.
 Torch has no such CUDA matmul, and on the CPU an int8 matmul returns int8
@@ -21,7 +22,7 @@ from typing import Any, Callable
 import torch
 
 from diskann_tpu_torch.graph.packed import words_to_f32
-from diskann_tpu_torch.ops.distance import Metric
+from diskann_tpu_torch.ops.distance import Metric, distance_to_set, squared_norms
 from diskann_tpu_torch.ops.kernels.fatrow_expand import fatrow_expand
 
 
@@ -37,6 +38,26 @@ class ScorerDef:
     prep: Callable[[Any, torch.Tensor], Any]
     score: Callable[[Any, Any, torch.Tensor, torch.Tensor], torch.Tensor]
     expand: Callable | None = None
+
+
+def full_precision_scorer(vectors, sq_norms, metric: Metric):
+    """Full-precision scorer over the raw vectors: ``score`` gathers the
+    candidates' rows and takes one batched float32 product."""
+
+    def prep(data, queries):
+        qsq = (squared_norms(queries) if metric.needs_norms
+               else torch.zeros(queries.shape[0], device=queries.device))
+        return (queries, qsq)
+
+    def score(data, q_ctx, ids, valid):
+        vecs, sqn = data
+        q, qsq = q_ctx
+        safe = torch.where(valid, ids, 0).long().clamp(0, vecs.shape[0] - 1)
+        d = distance_to_set(q, vecs[safe], metric, x_sq_norms=sqn[safe],
+                            q_sq_norms=qsq)
+        return torch.where(valid, d, float("inf"))
+
+    return ScorerDef(f"fp:{metric.value}", prep, score), (vectors, sq_norms)
 
 
 def quantize_queries(queries, proj, pscale, pbias2, metric: Metric):

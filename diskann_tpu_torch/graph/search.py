@@ -1,5 +1,5 @@
-"""Frontier-batched greedy beam search (PyTorch port of the packed-scorer
-part of `diskann_tpu/graph/search.py`).
+"""Frontier-batched greedy beam search (PyTorch port of
+`diskann_tpu/graph/search.py`).
 
 Keep a distance-sorted best-list of size L per query; each hop expands the
 ``beam_width`` closest unexpanded entries of every query in the batch at
@@ -7,14 +7,22 @@ once, scores their neighbours, and merges; stop when no query has an
 unexpanded entry or after ``max_hops`` hops.  The hop loop is a Python loop
 that checks convergence once per hop.
 
-Two dedup modes are ported, both for scorers with ``expand``:
+Three dedup modes:
 
-- ``"list"`` (search): candidates already in the best-list, or repeated
-  within the hop, are dropped before the merge; a node that fell off the
-  list may be scored again (extra cmps, identical results).
+- ``"ring"``: candidates already in the best-list, in a per-query ring of
+  recently scored ids, or repeated within the hop are dropped before they
+  are scored (the reference's visited set, exact up to the ring's age);
+- ``"list"`` (packed search): the best-list and the hop only; a node that
+  fell off the list may be scored again (extra cmps, identical results);
 - ``"merge"`` (build): duplicates are dropped inside the merge sort — the
   same id always carries the same distance, so sorting by (distance, id)
   lands its copies side by side.
+
+Filters (``accept_fn``): the inline beta filter keeps a separate list of
+matching nodes at their true distances and shrinks the navigation
+distances of matching nodes by ``filter_beta``; ``filter_mode="multihop"``
+admits only matching nodes to the navigation list and tunnels through the
+closest rejected neighbours with a second, accept-only expansion.
 
 Every sort is stable, which reproduces the reference's tie order and
 therefore its ids and ``cmps`` exactly for the same scorer inputs.
@@ -26,10 +34,13 @@ from typing import NamedTuple
 
 import torch
 
-from diskann_tpu_torch.graph.scorers import ScorerDef
+from diskann_tpu_torch.graph.scorers import ScorerDef, full_precision_scorer
+from diskann_tpu_torch.ops.distance import Metric
 from diskann_tpu_torch.ops.topk import (
-    SENTINEL, mask_duplicates_sorted, sort_lex, sort_with,
+    SENTINEL, isin_rows, mask_duplicates_sorted, sort_lex, sort_with,
 )
+
+_INF = float("inf")
 
 
 class SearchResult(NamedTuple):
@@ -40,6 +51,41 @@ class SearchResult(NamedTuple):
     pool_d: torch.Tensor   # [B, P] expanded pool distances (build)
     pool_i: torch.Tensor   # [B, P]
     pool_n: torch.Tensor   # [B]
+    match_d: torch.Tensor  # [B, Lm] filter-matching results (true distances)
+    match_i: torch.Tensor  # [B, Lm]
+
+
+class ResumeState(NamedTuple):
+    """Search scratch to pass back via ``resume_state`` and continue."""
+
+    best_d: torch.Tensor   # [B, L]
+    best_i: torch.Tensor   # [B, L]
+    best_exp: torch.Tensor  # [B, L]
+    ring: torch.Tensor     # [B, H]
+    cmps: torch.Tensor     # [B]
+    hops: torch.Tensor     # [B]
+    match_d: torch.Tensor  # [B, Lm] filtered matched list ([B, 1] dummy)
+    match_i: torch.Tensor  # [B, Lm]
+
+
+def _beta_bias(d, accepted, beta: float):
+    """Bias navigation distances toward filter matches: positive distances
+    shrink by *beta, negative (inner-product) ones grow by /beta."""
+    if beta == 1.0:
+        return d
+    biased = torch.where(d >= 0, d * beta, d / beta)
+    return torch.where(accepted, biased, d)
+
+
+def _match_merge(md, mi, lm: int):
+    """Merge candidate (d, id) columns into the matched-only list, dropping
+    repeated ids: one id always carries the same true distance, so sorting
+    by (d, id) lands its copies side by side."""
+    md, mi = sort_lex(md, mi)
+    prev = torch.nn.functional.pad(mi[:, :-1], (1, 0), value=-2)
+    dup = (mi == prev) & (mi >= 0)
+    md, mi = sort_with(torch.where(dup, _INF, md), torch.where(dup, -1, mi))
+    return md[:, :lm], mi[:, :lm]
 
 
 def search_geometry(*, l_search: int, reserve: int, beam_width: int, r: int,
@@ -56,6 +102,33 @@ def search_geometry(*, l_search: int, reserve: int, beam_width: int, r: int,
     return l, c, s + ring_hops * c
 
 
+def grow_resume_state(st: ResumeState, l_total: int,
+                      ring_width: int) -> ResumeState:
+    """Pad a ResumeState to a larger list and ring width, so a search can
+    resume with a bigger L window (AdaptiveL) instead of restarting.  New
+    list slots are empty (inf / -1 / expanded), appended at the sorted
+    tail; the ring pads with -1 (its membership test scans all of it)."""
+    l_old = st.best_d.shape[1]
+    dl = l_total - l_old
+    dh = ring_width - st.ring.shape[1]
+    if dl < 0 or dh < 0:
+        raise ValueError("resume states only grow")
+    if dl == 0 and dh == 0:
+        return st
+    pad = torch.nn.functional.pad
+    has_match = st.match_d.shape[1] == l_old  # filtered search: Lm == L
+    return ResumeState(
+        best_d=pad(st.best_d, (0, dl), value=_INF),
+        best_i=pad(st.best_i, (0, dl), value=-1),
+        best_exp=pad(st.best_exp, (0, dl), value=1),
+        ring=pad(st.ring, (0, dh), value=-1),
+        cmps=st.cmps,
+        hops=st.hops,
+        match_d=pad(st.match_d, (0, dl), value=_INF) if has_match else st.match_d,
+        match_i=pad(st.match_i, (0, dl), value=-1) if has_match else st.match_i,
+    )
+
+
 def beam_search_scored(
     scorer_def: ScorerDef,
     scorer_data,
@@ -66,35 +139,52 @@ def beam_search_scored(
     l_search: int,
     beam_width: int = 1,
     max_hops: int = 512,
+    history_capacity: int = 0,
     pool_capacity: int = 1,
     record_pool: bool = False,
-    dedup: str = "list",
+    dedup: str = "ring",
+    accept_fn=None,               # (accept_data, ids, valid) -> bool mask
+    accept_data=None,
+    filter_beta: float = 1.0,
+    filter_mode: str = "inline",  # "inline" | "multihop"
     query_valid: torch.Tensor | None = None,   # [B] bool — padded rows
-    accept_fn=None,
-    resume_state=None,
+    expand_r: int | None = None,  # scorer.expand slots per node if != R
+    resume_state: ResumeState | None = None,
+    return_state: bool = False,
     reserve: int = 0,
+    reseed_ring: bool = False,
     diverse_attrs=None,
     diverse_l: int = 0,
-) -> SearchResult:
-    """Batched greedy beam search with a pluggable scorer (``expand``
-    required).  Filters (``accept_fn``), resume, ``reserve``, diversity
-    quotas and ``dedup="ring"`` are not ported yet and raise."""
-    if accept_fn is not None or resume_state is not None:
-        raise NotImplementedError("filtered and resumed search are not ported")
-    if reserve or diverse_attrs is not None or diverse_l:
-        raise NotImplementedError("reserve and diversity quotas are not ported")
-    if dedup not in ("list", "merge"):
-        raise NotImplementedError(f"dedup={dedup!r} is not ported")
-    if scorer_def.expand is None:
-        raise NotImplementedError("only scorers with `expand` are ported")
+    merge_trunc: bool = False,
+):
+    """Batched greedy beam search with a pluggable scorer.  Returns a
+    `SearchResult`, and with ``return_state`` also the final
+    `ResumeState`.  ``reserve``, diversity quotas and ``merge_trunc`` are
+    not ported yet and raise."""
+    if reserve or diverse_attrs is not None or diverse_l or merge_trunc:
+        raise NotImplementedError(
+            "reserve, diversity quotas and merge_trunc are not ported"
+        )
+    if dedup not in ("ring", "list", "merge"):
+        raise ValueError(f"unknown dedup {dedup!r}")
+    if filter_mode not in ("inline", "multihop"):
+        raise ValueError(f"unknown filter_mode {filter_mode!r}")
+    if dedup == "merge" and (scorer_def.expand is None or accept_fn is not None):
+        raise ValueError("dedup='merge' needs an expand scorer and no filter")
 
     dev = queries.device
     b = queries.shape[0]
+    n, r = adjacency.shape
     s = start_ids.shape[-1]
     w = beam_width
-    l = l_search
+    l, c, h = search_geometry(
+        l_search=l_search, reserve=0, beam_width=w, r=r, s=s,
+        expand_r=expand_r, history_capacity=history_capacity, dedup=dedup,
+    )
+    ring_hops = (h - s) // c
     p = pool_capacity if record_pool else 1
-    inf = float("inf")
+    filtered = accept_fn is not None
+    multihop = filtered and filter_mode == "multihop"
 
     q_ctx = scorer_def.prep(scorer_data, queries)
 
@@ -103,22 +193,85 @@ def beam_search_scored(
     sid = sid.to(device=dev, dtype=torch.int32)
     svalid = sid >= 0
     sd = scorer_def.score(scorer_data, q_ctx, sid, svalid)
+
+    lm = l if filtered else 1
+    if filtered:
+        # the matched-only result list, seeded from the accepted start
+        # points (which may repeat: router starts can hit one node twice)
+        sacc = accept_fn(accept_data, sid, svalid)
+        mpad = max(l - s, 0)
+        match_d, match_i = _match_merge(
+            torch.nn.functional.pad(torch.where(sacc, sd, _INF), (0, mpad),
+                                    value=_INF),
+            torch.nn.functional.pad(torch.where(sacc, sid, -1), (0, mpad),
+                                    value=-1),
+            lm,
+        )
+        sd = _beta_bias(sd, sacc, filter_beta)
+    else:
+        match_d = torch.full((b, lm), _INF, device=dev)
+        match_i = torch.full((b, lm), -1, dtype=torch.int32, device=dev)
+
     pad = max(l - s, 0)
     best_d, best_i = sort_with(
-        torch.nn.functional.pad(sd, (0, pad), value=inf),
+        torch.nn.functional.pad(sd, (0, pad), value=_INF),
         torch.nn.functional.pad(sid, (0, pad), value=-1),
     )
     best_d, best_i = best_d[:, :l], best_i[:, :l]
     best_e = (best_i < 0).to(torch.int32)          # expanded flags
+
+    ring = torch.full((b, h), -1, dtype=torch.int32, device=dev)
+    ring[:, :s] = torch.where(svalid, sid, -1)
+
     if query_valid is not None:
         # converged-from-the-start rows: mark everything expanded
         best_e = torch.where(query_valid[:, None], best_e, 1)
 
-    pool_d = torch.full((b, p), inf, device=dev)
-    pool_i = torch.full((b, p), -1, dtype=torch.int32, device=dev)
-    pool_n = torch.zeros(b, dtype=torch.int32, device=dev)
     cmps = svalid.sum(1, dtype=torch.int32)
     hops = torch.zeros(b, dtype=torch.int32, device=dev)
+    if resume_state is not None:
+        if resume_state.ring.shape[1] != h:
+            raise ValueError("resume with the ring width of this call "
+                             "(grow_resume_state)")
+        best_d, best_i = resume_state.best_d, resume_state.best_i
+        best_e, ring = resume_state.best_exp, resume_state.ring.clone()
+        cmps, hops = resume_state.cmps, resume_state.hops
+        if filtered and resume_state.match_d.shape[1] == lm:
+            # the matched list carries over (it already holds the starts)
+            match_d, match_i = resume_state.match_d, resume_state.match_i
+        if reseed_ring:
+            # A converged pass has every list entry expanded, so a grown
+            # window alone gives no frontier.  The ring holds every id the
+            # pass scored, including those that fell off its smaller list:
+            # re-score them and merge them as unexpanded entries.
+            rid = torch.sort(torch.where(ring >= 0, ring, SENTINEL), dim=1).values
+            rfresh = ((rid != SENTINEL) & ~mask_duplicates_sorted(rid)
+                      & ~isin_rows(rid, best_i))
+            rd = scorer_def.score(scorer_data, q_ctx, rid, rfresh)
+            rids = torch.where(rfresh, rid, -1)
+            cmps = cmps + rfresh.sum(1, dtype=torch.int32)
+            if filtered:
+                racc = accept_fn(accept_data, rid, rfresh) & rfresh
+                match_d, match_i = _match_merge(
+                    torch.cat([match_d, torch.where(racc, rd, _INF)], 1),
+                    torch.cat([match_i, torch.where(racc, rids, -1)], 1),
+                    lm,
+                )
+                if multihop:
+                    # multihop navigation admits accepted nodes only
+                    rd = torch.where(racc, rd, _INF)
+                    rids = torch.where(racc, rids, -1)
+                else:
+                    rd = _beta_bias(rd, racc, filter_beta)
+            md, mi, me = sort_with(
+                torch.cat([best_d, rd], 1), torch.cat([best_i, rids], 1),
+                torch.cat([best_e, (rids < 0).to(torch.int32)], 1),
+            )
+            best_d, best_i, best_e = md[:, :l], mi[:, :l], me[:, :l]
+
+    pool_d = torch.full((b, p), _INF, device=dev)
+    pool_i = torch.full((b, p), -1, dtype=torch.int32, device=dev)
+    pool_n = torch.zeros(b, dtype=torch.int32, device=dev)
     pos = torch.arange(l, device=dev).expand(b, l)
 
     for it in range(max_hops):
@@ -139,15 +292,13 @@ def beam_search_scored(
         # ---- record the expanded pool (build-time prune candidates) ----
         if record_pool and (it + 1) * w <= p:
             off = it * w
-            pool_d[:, off:off + w] = torch.where(beam_valid, beam_d, inf)
+            pool_d[:, off:off + w] = torch.where(beam_valid, beam_d, _INF)
             pool_i[:, off:off + w] = beam_ids
         if record_pool:
             pool_n += n_exp
 
-        # ---- 2. expand + score every neighbour of the beam ----
-        ci, cd = scorer_def.expand(scorer_data, q_ctx, beam_ids, beam_valid)
-
         if dedup == "merge":
+            ci, cd = scorer_def.expand(scorer_data, q_ctx, beam_ids, beam_valid)
             # sort by (d, id*4 | is_new*2 | expanded): an id's copies land
             # adjacent with the old entry first
             md = torch.cat([best_d, cd], 1)
@@ -156,30 +307,119 @@ def beam_search_scored(
             mi = key >> 2
             dup = mask_duplicates_sorted(mi) & (mi >= 0)
             fresh_n = (((key & 2) == 2) & ~dup & (mi >= 0)).sum(1, dtype=torch.int32)
-            md = torch.where(dup, inf, md)
+            md = torch.where(dup, _INF, md)
             key2 = torch.where(dup, -1, mi * 2 + (key & 1))
             md, key2 = sort_with(md, key2)
+            best_d = md[:, :l]
+            best_i = key2[:, :l] >> 1
+            best_e = key2[:, :l] & 1
             cmps = cmps + fresh_n
-        else:
+            hops = hops + n_exp
+            continue
+
+        # ---- 2. expand the beam: every neighbour, sorted by id ----
+        if scorer_def.expand is not None:
+            # the packed layout scores every neighbour in the same pass
+            ci, cd = scorer_def.expand(scorer_data, q_ctx, beam_ids, beam_valid)
             cand = torch.where(ci >= 0, ci, SENTINEL)
             cand, cand_d = sort_with(cand, cd)
-            dup = mask_duplicates_sorted(cand)
-            in_list = (cand[:, :, None] == best_i[:, None, :]).any(-1)
-            fresh = (cand != SENTINEL) & ~dup & ~in_list
-            md = torch.cat([best_d, torch.where(fresh, cand_d, inf)], 1)
-            key2 = torch.cat(
-                [best_i * 2 + best_e, torch.where(fresh, cand * 2, -1)], 1
-            )
-            md, key2 = sort_with(md, key2)
-            cmps = cmps + fresh.sum(1, dtype=torch.int32)
+        else:
+            nbrs = adjacency[beam_ids.clamp(0, n - 1).long()]       # [B, W, R]
+            nbrs = torch.where(beam_valid[:, :, None], nbrs, -1)
+            cand = nbrs.reshape(b, w * r)
+            cand = torch.sort(torch.where(cand >= 0, cand, SENTINEL), dim=1).values
+            cand_d = None
 
-        # ---- 3. truncate the merged lists to L ----
-        best_d = md[:, :l]
-        best_i = key2[:, :l] >> 1
-        best_e = key2[:, :l] & 1
+        # ---- 3. dedup: within the hop, against the list and the ring ----
+        fresh = ((cand != SENTINEL) & ~mask_duplicates_sorted(cand)
+                 & ~isin_rows(cand, best_i))
+        if dedup == "ring":
+            fresh &= ~isin_rows(cand, ring)
+            # this hop's segment of the ring: one contiguous write
+            seg = s + (it % ring_hops) * c
+            ring[:, seg:seg + c] = torch.where(fresh, cand, -1)
+
+        # ---- 4. score the fresh candidates ----
+        if cand_d is None:
+            cd = scorer_def.score(scorer_data, q_ctx, cand, fresh)
+        else:
+            cd = torch.where(fresh, cand_d, _INF)
+        cand_ids = torch.where(fresh, cand, -1)
+        cmps = cmps + fresh.sum(1, dtype=torch.int32)
         hops = hops + n_exp
 
-    return SearchResult(
+        # ---- 4b. filter: matched list, beta bias or two-hop tunnel ----
+        extra_d = extra_k = None
+        if filtered:
+            acc = accept_fn(accept_data, cand, fresh) & fresh
+            match_d, match_i = _match_merge(
+                torch.cat([match_d, torch.where(acc, cd, _INF)], 1),
+                torch.cat([match_i, torch.where(acc, cand_ids, -1)], 1),
+                lm,
+            )
+            if multihop:
+                # the closest max(R/2, 1) rejected neighbours get a second,
+                # accept-only expansion; R is the adjacency width
+                w2 = max(r // 2, 1)
+                rd2, ri2 = sort_with(torch.where(fresh & ~acc, cd, _INF), cand)
+                hop2 = torch.where(torch.isfinite(rd2[:, :w2]), ri2[:, :w2], -1)
+                nb2 = adjacency[hop2.clamp(0, n - 1).long()]
+                nb2 = torch.where((hop2 >= 0)[:, :, None], nb2, -1)
+                cand2 = torch.where(nb2 >= 0, nb2, SENTINEL).reshape(b, w2 * r)
+                cand2 = torch.sort(cand2, dim=1).values
+                fresh2 = ((cand2 != SENTINEL) & ~mask_duplicates_sorted(cand2)
+                          & ~isin_rows(cand2, best_i) & ~isin_rows(cand2, cand))
+                cd2 = scorer_def.score(scorer_data, q_ctx, cand2, fresh2)
+                acc2 = accept_fn(accept_data, cand2, fresh2) & fresh2
+                extra_d = torch.where(acc2, cd2, _INF)
+                extra_i = torch.where(acc2, cand2, -1)
+                extra_k = torch.where(acc2, cand2 * 2, -1)
+                match_d, match_i = _match_merge(
+                    torch.cat([match_d, extra_d], 1),
+                    torch.cat([match_i, extra_i], 1), lm,
+                )
+                cmps = cmps + fresh2.sum(1, dtype=torch.int32)
+                hops = hops + (hop2 >= 0).sum(1, dtype=torch.int32)
+                # the navigation list takes accepted one-hop candidates only
+                cd = torch.where(acc, cd, _INF)
+                cand_ids = torch.where(acc, cand_ids, -1)
+            else:
+                cd = _beta_bias(cd, acc, filter_beta)
+
+        # ---- 5. merge into the best lists: (id, expanded) in one word ----
+        md = [best_d, cd]
+        key = [best_i * 2 + best_e, torch.where(cand_ids >= 0, cand_ids * 2, -1)]
+        if extra_d is not None:
+            md.append(extra_d)
+            key.append(extra_k)
+        md, key = sort_with(torch.cat(md, 1), torch.cat(key, 1))
+        best_d = md[:, :l]
+        best_i = key[:, :l] >> 1
+        best_e = key[:, :l] & 1
+
+    out = SearchResult(
         dists=best_d, ids=best_i, cmps=cmps, hops=hops,
         pool_d=pool_d, pool_i=pool_i, pool_n=pool_n,
+        match_d=match_d, match_i=match_i,
+    )
+    if return_state:
+        return out, ResumeState(
+            best_d=best_d, best_i=best_i, best_exp=best_e, ring=ring,
+            cmps=cmps, hops=hops, match_d=match_d, match_i=match_i,
+        )
+    return out
+
+
+def beam_search(vectors, vec_sq_norms, adjacency, start_ids, queries, *,
+                metric: Metric, l_search: int, beam_width: int = 1,
+                max_hops: int = 512, history_capacity: int = 0,
+                pool_capacity: int = 1, record_pool: bool = False,
+                dedup: str = "ring", query_valid=None) -> SearchResult:
+    """Full-precision beam search (the in-memory configuration)."""
+    sdef, sdata = full_precision_scorer(vectors, vec_sq_norms, metric)
+    return beam_search_scored(
+        sdef, sdata, adjacency, start_ids, queries,
+        l_search=l_search, beam_width=beam_width, max_hops=max_hops,
+        history_capacity=history_capacity, pool_capacity=pool_capacity,
+        record_pool=record_pool, dedup=dedup, query_valid=query_valid,
     )

@@ -126,7 +126,8 @@ def test_bf16_router_search(data, torch_index):
     idx, _ = torch_index
     idx.router_compute = "bf16"
     try:
-        _, ids, _ = idx.search(q, K, l_search=24, beam_width=4, rerank_l=12, max_hops=6)
+        _, ids, _ = idx.search(q, K, l_search=24, beam_width=4, mode="packed",
+                               rerank_l=12, max_hops=6)
     finally:
         idx.router_compute = "int8"
     assert knn_recall(ids, gt, K) >= 0.9
@@ -140,14 +141,16 @@ def test_routed_build_keeps_invariants():
                            insert_batch_size=256, packed_dp=16)
     _check_invariants(idx)
     _, gt = FlatIndex(x).search(q, K)
-    _, ids, _ = idx.search(q, K, l_search=24, beam_width=4)
+    _, ids, _ = idx.search(q, K, l_search=24, beam_width=4, mode="packed")
     assert knn_recall(ids, gt, K) >= 0.9
 
 
 def test_unported_modes_raise(torch_index):
     idx, _ = torch_index
     with pytest.raises(NotImplementedError):
-        idx.search(np.zeros((1, D), np.float32), K, mode="full")
+        idx.search(np.zeros((1, D), np.float32), K, mode="pq")
+    with pytest.raises(NotImplementedError):
+        idx.search(np.zeros((1, D), np.float32), K, mode="packed", query_dtype="i8")
     with pytest.raises(NotImplementedError):
         GraphIndex.build(np.zeros((8, D), np.float32), build_mode="full")
 
@@ -177,7 +180,7 @@ def test_insert_grows_capacity_and_keeps_invariants():
     assert idx.packed.rows.shape[0] == (idx.state.capacity + 1) * idx.packed.nwr
     _check_invariants(idx)
     _, gt = FlatIndex(x).search(q, K)
-    _, ids, _ = idx.search(q, K, l_search=24, beam_width=4)
+    _, ids, _ = idx.search(q, K, l_search=24, beam_width=4, mode="packed")
     assert knn_recall(ids, gt, K) >= 0.9
 
 

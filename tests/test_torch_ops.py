@@ -125,3 +125,21 @@ def test_sort_lex_matches_two_key_sort():
     got = tt.sort_lex(t(k1), t(k2))
     for w, g in zip(want, got):
         np.testing.assert_array_equal(n(g), np.asarray(w))
+
+
+@pytest.mark.parametrize("c,m", [(40, 12), (332, 668), (3403, 332), (7, 1)])
+def test_isin_rows_matches_broadcast_compare(c, m):
+    # the ring, reseed and multihop membership test of the search loop: the
+    # same mask as the reference's broadcast compare, on rows with repeats,
+    # -1 pads and the sort-to-the-end sentinel
+    rng = np.random.default_rng(c + m)
+    x = rng.integers(-1, 60, size=(5, c)).astype(np.int32)
+    ref = rng.integers(-1, 60, size=(5, m)).astype(np.int32)
+    x[:, ::9] = tt.SENTINEL
+    ref[0] = -1
+    ref[1, : m // 2] = tt.SENTINEL
+    want = (x[:, :, None] == ref[:, None, :]).any(-1)
+    np.testing.assert_array_equal(n(tt.isin_rows(t(x), t(ref))), want)
+    fresh = np.asarray(jt.mask_duplicates_sorted(np.sort(x, 1)))
+    got_fresh = n(tt.mask_duplicates_sorted(t(np.sort(x, 1))))
+    np.testing.assert_array_equal(got_fresh, fresh)

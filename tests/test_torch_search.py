@@ -4,8 +4,12 @@ package's on a fixed JAX-built graph.
 Both searches get the same query context (int8 query codes, scales,
 squared norms): it rides in the ``queries`` argument, so the float32
 projection that builds it, whose summation order differs between the
-frameworks, is out of the comparison.  Then ids, ``cmps``, ``hops`` and the
-build pool are identical, and distances agree within rtol 1e-6.
+frameworks, is out of the comparison.  Then ids, ``cmps``, ``hops``, the
+build pool and the filtered walks' matched lists are identical, and
+distances agree within rtol 1e-6.  The filtered cases carry one label set
+(30% "hot") to both packages: the inline walk of the packed filtered
+search, multihop over the ring, and a pass resumed at a wider window
+after `grow_resume_state` with ``reseed_ring``.
 """
 
 import jax.numpy as jnp
@@ -14,12 +18,19 @@ import pytest
 import torch
 
 from diskann_tpu import GraphConfig as JConfig, GraphIndex as JIndex
+from diskann_tpu.filters import LabelSet as JLabelSet
+from diskann_tpu.filters import compile_accept as j_compile_accept
+from diskann_tpu.filters import parse_predicate as j_parse
 from diskann_tpu.graph.scorers import ScorerDef as JScorerDef
 from diskann_tpu.graph.scorers import packed_scorer as j_packed_scorer
 from diskann_tpu.graph.search import beam_search_scored as j_search
+from diskann_tpu.graph.search import grow_resume_state as j_grow
 from diskann_tpu_torch.convert import graph_index_from_arrays
+from diskann_tpu_torch.filters import LabelSet, compile_accept, parse_predicate
 from diskann_tpu_torch.graph.scorers import ScorerDef, packed_scorer
-from diskann_tpu_torch.graph.search import beam_search_scored, search_geometry
+from diskann_tpu_torch.graph.search import (
+    beam_search_scored, grow_resume_state, search_geometry,
+)
 from diskann_tpu_torch.ops.distance import Metric
 from torch_port_helpers import jax_index_arrays, n, t
 
@@ -55,7 +66,10 @@ def _ctx_prep_torch(dp):
     return prep
 
 
-def _run_both(graphs, start_ids, **kw):
+def _run_both(graphs, start_ids, filtered=False, resume=None, **kw):
+    """One search in each package on the same query context.  filtered:
+    accept "hot" (30% of the nodes) with beta 0.5; resume: a (JAX, torch)
+    pair of ResumeStates to continue from."""
     jidx, tidx, q = graphs
     metric = jidx.config.metric
     jdef, jdata = j_packed_scorer(jidx.packed, metric)
@@ -64,17 +78,36 @@ def _run_both(graphs, start_ids, **kw):
     packed_q = np.concatenate(
         [np.asarray(qi, np.float32), np.asarray(qscale)[:, None],
          np.asarray(qsq)[:, None]], axis=1)
+    jkw, tkw = dict(kw), dict(kw)
+    if "query_valid" in kw:
+        tkw["query_valid"] = t(kw["query_valid"])
+    if filtered:
+        cap = jidx.state.capacity
+        hot = np.random.default_rng(9).random(cap) < 0.3
+        labels = [["hot"] if h else ["cold"] for h in hot]
+        jls = JLabelSet.from_lists(labels, capacity=cap)
+        tls = LabelSet.from_lists(labels, capacity=cap)
+        jkw.update(accept_fn=j_compile_accept(j_parse("hot"), jls.vocab, cap),
+                   accept_data=jls.bits, filter_beta=0.5)
+        tkw.update(accept_fn=compile_accept(parse_predicate("hot"), tls.vocab, cap),
+                   accept_data=tls.bits, filter_beta=0.5)
+    if resume is not None:
+        jkw["resume_state"], tkw["resume_state"] = resume
     jdef2 = JScorerDef(jdef.name, _ctx_prep_jax(dp), jdef.score, jdef.expand)
     want = j_search(jdef2, jdata, jidx.state.adjacency, jnp.asarray(start_ids),
-                    jnp.asarray(packed_q), expand_r=jidx.packed.r_pack, **kw)
+                    jnp.asarray(packed_q), expand_r=jidx.packed.r_pack, **jkw)
     tdef, tdata = packed_scorer(tidx.packed, Metric(metric.value))
     tdef2 = ScorerDef(tdef.name, _ctx_prep_torch(dp), tdef.score, tdef.expand)
-    tkw = dict(kw)
-    if "query_valid" in tkw:
-        tkw["query_valid"] = t(tkw["query_valid"])
     got = beam_search_scored(tdef2, tdata, tidx.state.adjacency, t(start_ids),
-                             t(packed_q), **tkw)
+                             t(packed_q), expand_r=tidx.packed.r_pack, **tkw)
     return want, got
+
+
+def _assert_same(want, got, fields=("ids", "cmps", "hops", "match_i")):
+    for f in fields:
+        np.testing.assert_array_equal(n(getattr(got, f)), np.asarray(getattr(want, f)))
+    np.testing.assert_allclose(n(got.dists), np.asarray(want.dists), rtol=1e-6)
+    np.testing.assert_allclose(n(got.match_d), np.asarray(want.match_d), rtol=1e-6)
 
 
 def _starts(rng, jidx, per_query: bool):
@@ -113,14 +146,58 @@ def test_merge_dedup_with_pool_matches_jax(graphs, beam_width, max_hops, pool):
     np.testing.assert_allclose(n(got.pool_d), np.asarray(want.pool_d), rtol=1e-6)
 
 
+@pytest.mark.parametrize("per_query", [False, True])
+@pytest.mark.parametrize("l_search,max_hops", [(32, 512), (48, 4)])
+def test_packed_inline_filter_matches_jax(graphs, per_query, l_search, max_hops):
+    # the hop of the packed filtered search: list dedup, W=4, inline beta
+    rng = np.random.default_rng(l_search + per_query)
+    want, got = _run_both(graphs, _starts(rng, graphs[0], per_query), filtered=True,
+                          l_search=l_search, beam_width=4, max_hops=max_hops,
+                          dedup="list")
+    _assert_same(want, got)
+    assert (n(got.match_i) >= 0).sum() > 0
+
+
+@pytest.mark.parametrize("dedup", ["ring", "list"])
+def test_packed_multihop_matches_jax(graphs, dedup):
+    rng = np.random.default_rng(4)
+    want, got = _run_both(graphs, _starts(rng, graphs[0], True), filtered=True,
+                          filter_mode="multihop", l_search=24, beam_width=2,
+                          max_hops=40, dedup=dedup, history_capacity=512)
+    _assert_same(want, got)
+
+
+@pytest.mark.parametrize("filtered", [False, True])
+def test_resumed_pass_matches_jax(graphs, filtered):
+    # pass 1 at L=12, then both states grown to L=40 and resumed with the
+    # frontier re-seeded from the scored-id ring
+    jidx = graphs[0]
+    starts = _starts(np.random.default_rng(8), jidx, True)
+    kw = dict(filtered=filtered, beam_width=2, max_hops=512, dedup="ring",
+              return_state=True)
+    (want1, jst), (got1, tst) = _run_both(graphs, starts, l_search=12,
+                                          history_capacity=256, **kw)
+    _assert_same(want1, got1)
+    l_tot, _, h = search_geometry(l_search=40, reserve=0, beam_width=2,
+                                  r=jidx.state.adjacency.shape[1], s=starts.shape[1],
+                                  expand_r=jidx.packed.r_pack, history_capacity=640)
+    jst, tst = j_grow(jst, l_tot, h), grow_resume_state(tst, l_tot, h)
+    for f in jst._fields:
+        np.testing.assert_array_equal(n(getattr(tst, f)), np.asarray(getattr(jst, f)))
+    (want, _), (got, _) = _run_both(graphs, starts, l_search=40, history_capacity=640,
+                                    resume=(jst, tst), reseed_ring=True, **kw)
+    _assert_same(want, got)
+    assert (n(got.cmps) > n(got1.cmps)).any()
+
+
 def test_unported_options_raise(graphs):
     _, tidx, q = graphs
     tdef, tdata = packed_scorer(tidx.packed, Metric.L2)
     args = (tdef, tdata, tidx.state.adjacency, torch.zeros(1, dtype=torch.int32), t(q))
-    for kw in (dict(dedup="ring"), dict(reserve=4), dict(accept_fn=len),
-               dict(diverse_l=2)):
+    for kw in (dict(reserve=4), dict(diverse_l=2), dict(merge_trunc=True),
+               dict(diverse_attrs=torch.zeros(8, dtype=torch.int32), diverse_l=1)):
         with pytest.raises(NotImplementedError):
-            beam_search_scored(*args, l_search=8, **kw)
+            beam_search_scored(*args, l_search=8, dedup="list", **kw)
 
 
 def test_search_geometry_matches_jax():

@@ -41,8 +41,11 @@ def jax_index_arrays(idx) -> dict:
     if idx.packed is not None:
         packed = {f: np.asarray(getattr(idx.packed, f)) for f in PACKED_FIELDS}
         packed["r_pack"] = idx.packed.r_pack
+    labels = None
+    if getattr(idx, "labels", None) is not None:
+        labels = {"vocab": dict(idx.labels.vocab), "bits": np.asarray(idx.labels.bits)}
     return dict(config=cfg, graph=graph, packed=packed, n=idx.n,
-                n_deleted=idx.n_deleted)
+                n_deleted=idx.n_deleted, labels=labels)
 
 
 def rand_word_rows(rng, n_nodes: int, nwr: int) -> np.ndarray:
