@@ -6,7 +6,8 @@
 Phases, each printing one line:
 
 1. device: card name, power limit, torch and CUDA versions, TF32 flags;
-2. kernel build: nvcc compiles `diskann_tpu_torch/ops/kernels/csrc/`;
+2. kernel build: one nvcc per source of `diskann_tpu_torch/ops/kernels/csrc/`,
+   all started together, then one link;
 3. K1 `fatrow_expand` against its plain version, bitwise, at (r_pack, dp) =
    (16, 64), (32, 32), (88, 64), (84, 128), with repeated and out-of-range
    beam ids, and at the main path's BW = 8192 x 4 slots;
@@ -15,6 +16,9 @@ Phases, each printing one line:
    (20k points, with the benchmark's labels) searched on the card and,
    carried across, on the CPU: the packed search, and the filtered search
    by the packed walk, the posting-list scan and the full inline route;
+   then one delete cycle on both (delete 1,000 ids by scan + fill, insert
+   1,000 vectors): the same freed and reused slots, and >= 99% identical
+   adjacency entries and packed-search ids;
 5. main path: clustered n x 128 data, exact top-10 by `FlatIndex`, packed
    build (R=64, L=100, alpha=1.2, W=4, build_max_hops=12, occlusion cap
    256, batch 8192, dp=64), `attach_packed(dp=128)`, packed search at
@@ -32,10 +36,29 @@ Phases, each printing one line:
 8. kernel times against the plain versions at the main path's shapes, on
    random tables of the main path's size, where each kernel is also held
    bitwise against its plain version: K1 on the dp=64 and dp=128 tables,
-   K2 on the dp=128 table (both past 2^31 words at 1M rows).
+   K2 on the dp=128 table (both past 2^31 words at 1M rows); each beside
+   its least time on the card (bytes over 3.35 TB/s) and, for K2, the one
+   library call that does the same (`index_copy_`);
+9. stream: the JAX package's 1M streaming setting (`BENCH_STREAM1M_r05`):
+   a packed index over 1M of 1.5M clustered points (capacity 1,040,000),
+   then 10 cycles of delete 50,000 (scan, fill, max_dead=8) + insert
+   50,000 + a recall checkpoint (L=90, packed, float16 queries,
+   max_hops=9) through `RunbookExecutor`; fails unless every checkpoint
+   reaches recall@10 >= 0.92 and, after every delete and cycle, no deleted
+   id is returned, no live row refers to a deleted id, the packed id words
+   equal adjacency, the live count matches and capacity never grows;
+10. runbook: an empty full-precision index (no packed layout) through
+   insert 100,000, three deletes of 2% (two_hop_one_hop + prune, one_hop +
+   fill, visited_topk + prune), consolidate, a refill of the freed slots,
+   a replace of 2% (scan + fill) and consolidate, a full-precision
+   checkpoint (L=90) after each; fails below recall@10 0.95 at any
+   checkpoint, or if a live row still refers to a deleted id after a scan
+   delete or a consolidate.
 
 Phase 6 also traces one filtered walk call with torch.profiler and splits
-its device time between K1, the matched-list merges and the rest.
+its device time between K1, the matched-list merges and the rest; phase 9
+traces one more delete and splits its device time between discovery,
+`fill_rows` and `refresh_rows` (of which K2).
 
 Then a JSON line with the kernels, the `nvidia-smi` name/power-limit line,
 and last the result line `{"ok": true, "device": {...}}`.  Any failed phase
@@ -64,6 +87,20 @@ TARGET_RECALL = 0.95
 FILTER_PREDS = ("cat0", "cat7", "cat0 | cat1")
 FILTER_KW = dict(l_search=90, mode="packed", max_hops=16)
 FULL_NQ = 1024
+# the JAX package's 1M streaming setting (`BENCH_STREAM1M_r05.json`)
+STREAM_N = 1_000_000
+STREAM_CYCLES = 10
+STREAM_FRAC = 0.05
+STREAM_NQ = 2048
+STREAM_CAP_MARGIN = 40_000
+STREAM_MIN_RECALL = 0.92
+R05_TRAJECTORY = [0.948, 0.9398, 0.9345, 0.9334, 0.9336, 0.9397, 0.9406, 0.9427,
+                  0.9441, 0.9442]
+RUNBOOK_N = 100_000
+# the H100 SXM's published peaks (NVIDIA data sheet): HBM bytes and dense
+# int8 operations per millisecond
+HBM_BYTES_PER_MS = 3.35e12 / 1e3
+INT8_OPS_PER_MS = 1979e12 / 1e3
 
 
 def log(msg: str) -> None:
@@ -203,7 +240,8 @@ def check_small_input(torch, device) -> float:
     x, q = make_clustered(1, n, 512, D, n_clusters=256, sigma=0.35)
     cfg = GraphConfig(max_degree=32, l_build=64, beam_width=4)
     card = GraphIndex.build(torch.from_numpy(x).to(device), cfg,
-                            insert_batch_size=4096, packed_dp=64)
+                            insert_batch_size=4096, build_mode="packed",
+                            packed_dp=64)
     card.attach_packed(dp=128)
     cats = bench_cats(n)
     card.attach_labels([[f"cat{c}"] for c in cats])
@@ -214,9 +252,10 @@ def check_small_input(torch, device) -> float:
         packed={**{f: getattr(pk, f).cpu().numpy() for f in
                    ("proj", "pscale", "pbias2", "self_codes", "self_aux", "rows")},
                 "r_pack": pk.r_pack},
-        n=card.n,
+        n=card.n, n_deleted=card.n_deleted, free_slots=card.free_slots,
         labels={"vocab": card.labels.vocab,
                 "bits": card.labels.bits.cpu().numpy().view(np.uint32)},
+        device="cpu", insert_batch_size=card.insert_batch_size,
     )
     walk = dict(FILTER_KW, query_dtype=np.float16)
     cases = [
@@ -245,7 +284,44 @@ def check_small_input(torch, device) -> float:
         if share < 0.99:
             raise RuntimeError(f"card and CPU disagree on {name}: {share:.4f} identical ids")
         worst = min(worst, share)
-    return worst
+    return min(worst, check_small_delete(card, host, q, n))
+
+
+def check_small_delete(card, host, q, n: int) -> float:
+    """One delete cycle on the card and on its CPU copy: delete the same
+    1,000 ids (scan discovery, fill repair), insert the same 1,000 new
+    vectors.  Both sides must free the same slots and reuse them in the
+    same order, and hold the same adjacency entry at >= 99% of cells and
+    the same packed-search ids at >= 99% of (query, rank) entries (near-
+    tied float distances may order a repaired row differently).  Returns
+    the smaller share."""
+    import numpy as np
+
+    from diskann_tpu_torch.bench.harness import make_clustered
+
+    dead = np.random.default_rng(3).choice(n, 1000, replace=False)
+    new, _ = make_clustered(4, 1000, 1, D, n_clusters=256, sigma=0.35)
+    for idx in (card, host):
+        idx.delete(dead, method="scan", repair="fill")
+    if card.free_slots != host.free_slots or card.free_slots != dead.tolist():
+        raise RuntimeError("[small] card and CPU free different slots")
+    slots = [idx.insert(new) for idx in (card, host)]
+    if not (np.array_equal(*slots) and np.array_equal(slots[0], dead[::-1])):
+        raise RuntimeError("[small] the inserts did not reuse the freed slots alike")
+    adj = (card.state.adjacency.cpu().numpy()[:n] == host.state.adjacency.numpy()[:n]).mean()
+    kw = dict(l_search=24, beam_width=4, mode="packed", rerank_l=12, max_hops=6)
+    _, ids_card, _ = card.search(q, K, **kw)
+    _, ids_host, _ = host.search(q, K, **kw)
+    share = float((ids_card == ids_host).mean())
+    log(f"[small] n={n} delete 1000 (scan, fill) + insert 1000 on the card vs the "
+        f"CPU: same freed and reused slots; identical adjacency entries {adj:.4f}, "
+        f"identical packed-search ids {share:.4f} (need >= 0.99 each); "
+        f"affected rows {card.last_delete_stats['affected']} / "
+        f"{host.last_delete_stats['affected']}")
+    if adj < 0.99 or share < 0.99:
+        raise RuntimeError(f"card and CPU disagree after a delete cycle: adjacency "
+                           f"{adj:.4f}, search ids {share:.4f}")
+    return min(float(adj), share)
 
 
 def run_main_path(n: int, device, *, search_batch: int = NQ):
@@ -443,64 +519,315 @@ def run_full_route(idx, qd, gt, gt_cat0) -> dict:
     return out
 
 
+def _device_ms(e, total: bool = False) -> float:
+    """Device milliseconds of a profiler event (self, or with children)."""
+    name = "device_time_total" if total else "self_device_time_total"
+    old = "cuda_time_total" if total else "self_cuda_time_total"
+    return getattr(e, name, getattr(e, old, 0)) / 1e3
+
+
+def profile_call(fn, device, ranges) -> dict:
+    """Run ``fn()`` once under torch.profiler, each (name, module, attr) of
+    ``ranges`` traced as a range called name.  Returns the wall time, the
+    device's busy time (kernels only) and idle share, the device time of
+    each range (kernels launched inside it) and the kernel events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    saved = []
+    for name, mod, attr in ranges:
+        orig = getattr(mod, attr)
+
+        def traced(*a, _orig=orig, _name=name, **kw):
+            with record_function(_name):
+                return _orig(*a, **kw)
+
+        saved.append((mod, attr, orig))
+        setattr(mod, attr, traced)
+    try:
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+        with profile(activities=acts) as prof:
+            t0 = time.time()
+            fn()
+            sync(torch, device)
+            wall = (time.time() - t0) * 1e3
+    finally:
+        for mod, attr, orig in reversed(saved):
+            setattr(mod, attr, orig)
+    names = {name for name, _, _ in ranges}
+    ev = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    # kernels are the device-side events; a range also shows there as one
+    # span from its first kernel to its last, gaps included
+    kern = [e for e in ev if e.device_type == cuda and e.key not in names]
+    busy = sum(_device_ms(e) for e in kern)
+    per = {name: sum(_device_ms(e, total=True) for e in ev
+                     if e.key == name and e.device_type != cuda) for name in names}
+    return {"wall_ms": wall, "device_ms": busy,
+            "idle_share": 1 - busy / wall if wall > 0 else None,
+            "ranges": per, "kernels": kern}
+
+
+def log_top_kernels(tag: str, kernels, n: int = 10) -> list:
+    top = sorted(kernels, key=_device_ms, reverse=True)[:n]
+    for e in top:
+        log(f"[{tag}]   {_device_ms(e):8.3f} ms  x{e.count:<5d} {e.key[:70]}")
+    return [(e.key[:70], _device_ms(e), e.count) for e in top]
+
+
 def profile_filtered_walk(idx, qd) -> dict:
     """torch.profiler over one filtered walk call ("cat0"): device time of
     K1, of the matched-list merges (`search._match_merge`, traced as one
     range) and of the rest, and the device's idle share of the call."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
 
     from diskann_tpu_torch.graph import search as search_mod
-
-    merge = search_mod._match_merge
-
-    def traced(*a, **kw):
-        with record_function("match_merge"):
-            return merge(*a, **kw)
 
     kw = dict(FILTER_KW, query_dtype=np.float16)
     idx.search_filtered(qd, "cat0", K, **kw)
     sync(torch, qd.device)
-    search_mod._match_merge = traced
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.time()
-            idx.search_filtered(qd, "cat0", K, **kw)
-            sync(torch, qd.device)
-            wall = time.time() - t0
-    finally:
-        search_mod._match_merge = merge
-
-    def dev(e, total=False):
-        name = "device_time_total" if total else "self_device_time_total"
-        old = "cuda_time_total" if total else "self_cuda_time_total"
-        return getattr(e, name, getattr(e, old, 0)) / 1e3
-
-    ev = prof.key_averages()
-    cuda = torch.autograd.DeviceType.CUDA
-    # kernels are the device-side events; the range also shows there as one
-    # span from its first kernel to its last, gaps included
-    kern = [e for e in ev if e.device_type == cuda and e.key != "match_merge"]
-    busy = sum(dev(e) for e in kern)
-    k1 = sum(dev(e) for e in kern if "fatrow_expand" in e.key)
-    mm = sum(dev(e, total=True) for e in ev
-             if e.key == "match_merge" and e.device_type != cuda)
-    span = sum(dev(e, total=True) for e in ev
-               if e.key == "match_merge" and e.device_type == cuda)
-    top = sorted(kern, key=dev, reverse=True)[:10]
-    out = {"wall_ms": wall * 1e3, "device_ms": busy, "k1_ms": k1,
-           "match_merge_ms": mm, "match_merge_span_ms": span,
-           "rest_ms": busy - k1 - mm,
-           "idle_share": 1 - busy / (wall * 1e3) if wall > 0 else None,
-           "top": [(e.key[:70], dev(e), e.count) for e in top]}
+    p = profile_call(lambda: idx.search_filtered(qd, "cat0", K, **kw), qd.device,
+                     [("match_merge", search_mod, "_match_merge")])
+    k1 = sum(_device_ms(e) for e in p["kernels"] if "fatrow_expand" in e.key)
+    mm = p["ranges"]["match_merge"]
+    out = {"wall_ms": p["wall_ms"], "device_ms": p["device_ms"], "k1_ms": k1,
+           "match_merge_ms": mm, "rest_ms": p["device_ms"] - k1 - mm,
+           "idle_share": p["idle_share"]}
     log(f"[profile] filtered walk 'cat0' ({NQ} queries, L=90, max_hops=16): wall "
-        f"{out['wall_ms']:.1f} ms, device busy {busy:.2f} ms (idle share "
-        f"{out['idle_share']:.3f}): K1 {k1:.2f} ms, matched-list merges {mm:.2f} ms "
-        f"(device span {span:.2f} ms), rest {out['rest_ms']:.2f} ms")
-    for key, ms, cnt in out["top"]:
-        log(f"[profile]   {ms:8.3f} ms  x{cnt:<5d} {key}")
+        f"{out['wall_ms']:.1f} ms, device busy {out['device_ms']:.2f} ms (idle share "
+        f"{out['idle_share']:.3f}): K1 {k1:.2f} ms, matched-list merges {mm:.2f} ms, "
+        f"rest {out['rest_ms']:.2f} ms")
+    out["top"] = log_top_kernels("profile", p["kernels"])
     return out
+
+
+def stream_invariants(idx, cap0: int, rows0: int, what: str) -> None:
+    """The stream's structural checks on the device: no live row refers to
+    a deleted id, the packed id words equal adjacency on every row, the
+    live count matches the liveness bits, and capacity never grew."""
+    import torch
+
+    from diskann_tpu_torch.graph.delete import rows_referencing_deleted
+
+    st = idx.state
+    if idx.state.capacity != cap0 or idx.packed.rows.shape[0] != rows0:
+        raise RuntimeError(f"{what}: capacity grew ({cap0} -> {st.capacity})")
+    dangling = int(rows_referencing_deleted(st).sum())
+    if dangling:
+        raise RuntimeError(f"{what}: {dangling} live rows refer to deleted ids")
+    cap, rs = st.adjacency.shape
+    fat_ids = idx.packed.rows.view(cap + 1, idx.packed.nwr * 128)[:cap, :rs]
+    if not torch.equal(fat_ids, st.adjacency):
+        raise RuntimeError(f"{what}: the packed id words differ from adjacency")
+    live = int(st.valid.sum())
+    if live != idx.n_live:
+        raise RuntimeError(f"{what}: n_live {idx.n_live} != valid.sum() {live}")
+    if not torch.equal((st.adjacency >= 0).sum(1, dtype=torch.int32), st.degrees):
+        raise RuntimeError(f"{what}: degrees do not match adjacency rows")
+
+
+def no_deleted_results(idx, q, freed, what: str, **kw) -> None:
+    """A search returns neither a freed slot nor an invalid id."""
+    import numpy as np
+
+    _, ids, _ = idx.search(q, K, **kw)
+    got = ids[ids >= 0]
+    valid = idx.state.valid.cpu().numpy()
+    if np.isin(got, np.asarray(freed)).any() or not valid[got].all():
+        raise RuntimeError(f"{what}: a search returned a deleted id")
+
+
+def stream_data(n: int = STREAM_N, cycles: int = STREAM_CYCLES):
+    """The stream's data: n + cycles x 5% clustered points and its
+    queries, as `scripts/bench_stream1m.py` draws them."""
+    from diskann_tpu_torch.bench.harness import make_clustered
+
+    t0 = time.time()
+    x, q = make_clustered(11, n + cycles * int(n * STREAM_FRAC), STREAM_NQ, D,
+                          n_clusters=4096, sigma=0.35)
+    log(f"[stream] data {x.shape[0]} x {D}, {STREAM_NQ} queries: {time.time() - t0:.1f}s")
+    return x, q
+
+
+def run_stream(x, q, device, k1, k2, *, n: int = STREAM_N,
+               cycles: int = STREAM_CYCLES,
+               min_recall: float = STREAM_MIN_RECALL) -> dict:
+    """The JAX package's 1M streaming setting (`scripts/bench_stream1m.py`
+    as `BENCH_STREAM1M_r05.json` recorded it): a packed index over the
+    first n points of `stream_data`, then `cycles` cycles of delete 5% (scan, fill,
+    max_dead=8) + insert 5% + search (L=90, packed, float16 queries,
+    max_hops=9) through `RunbookExecutor`, with the invariants checked
+    after each delete and each cycle.  Then one more delete of the same
+    size under torch.profiler.  Raises on a failed check or a checkpoint
+    below min_recall."""
+    import numpy as np
+    import torch
+
+    from diskann_tpu_torch import GraphConfig, GraphIndex
+    from diskann_tpu_torch.bench.runbook import RunbookExecutor
+    from diskann_tpu_torch.graph import delete as delete_mod
+    from diskann_tpu_torch.graph import packed as packed_mod
+
+    step = int(n * STREAM_FRAC)
+    cfg = GraphConfig(max_degree=64, l_build=100, alpha=1.2, beam_width=4,
+                      build_max_hops=12, max_occlusion_size=256)
+    t0 = time.time()
+    idx = GraphIndex.build(torch.from_numpy(x[:n]).to(device), cfg,
+                           insert_batch_size=8192, search_batch_size=STREAM_NQ,
+                           build_mode="packed", packed_dp=64,
+                           capacity=n + STREAM_CAP_MARGIN)
+    sync(torch, device)
+    build_s = time.time() - t0
+    cap0, rows0 = idx.state.capacity, idx.packed.rows.shape[0]
+    log(f"[stream] packed build n={n} (dp=64, capacity {cap0}): {build_s:.1f}s")
+    search_kw = {"mode": "packed", "query_dtype": np.float16, "max_hops": 9}
+    ex = RunbookExecutor(idx, x, q, k=K, l_search=90, delete_method="scan",
+                         delete_repair="fill", delete_kwargs={"max_dead": 8},
+                         search_kwargs=search_kw)
+    ex.tag_to_id = dict(zip(range(n), range(n)))
+    ex.tag_to_row = dict(zip(range(n), range(n)))
+
+    cycles_out = []
+    k1.launches = 0
+    k2.launches = 0
+    for c in range(cycles):
+        lo = c * step
+        l1, l2 = k1.launches, k2.launches
+        dele = ex.run([{"operation": "delete", "start": lo, "end": lo + step}])[-1]
+        affected = idx.last_delete_stats["affected"]
+        freed = list(idx.free_slots)
+        stream_invariants(idx, cap0, rows0, f"[stream] cycle {c} after the delete")
+        no_deleted_results(idx, q, freed, f"[stream] cycle {c}", l_search=90, **search_kw)
+        ins, srch = ex.run([
+            {"operation": "insert", "start": n + lo, "end": n + lo + step},
+            {"operation": "search"},
+        ])[-2:]
+        stream_invariants(idx, cap0, rows0, f"[stream] cycle {c} after the insert")
+        if idx.free_slots:
+            raise RuntimeError(f"[stream] cycle {c}: {len(idx.free_slots)} slots not reused")
+        row = {"cycle": c, "recall": srch["recall"], "delete_s": dele["wall_s"],
+               "insert_s": ins["wall_s"], "search_s": srch["wall_s"],
+               "affected": affected, "k1": k1.launches - l1, "k2": k2.launches - l2}
+        cycles_out.append(row)
+        log(f"[stream] cycle {c}: recall@{K}={row['recall']:.4f} delete {step} "
+            f"{row['delete_s']:.2f}s (affected rows {affected}) insert {step} "
+            f"{row['insert_s']:.2f}s checkpoint {row['search_s']:.2f}s "
+            f"launches K1={row['k1']} K2={row['k2']}")
+        if row["recall"] < min_recall:
+            raise RuntimeError(f"[stream] cycle {c}: recall {row['recall']:.4f} < {min_recall}")
+    launches = {"fatrow_expand": k1.launches, "block_patch": k2.launches}
+
+    traj = [r["recall"] for r in cycles_out]
+    out = {"n": n, "cycles": cycles, "build_s": build_s, "cycles_out": cycles_out,
+           "launches": launches,
+           "deletes_per_s": cycles * step / sum(r["delete_s"] for r in cycles_out),
+           "inserts_per_s": cycles * step / sum(r["insert_s"] for r in cycles_out),
+           "recall_end": traj[-1], "recall_min": min(traj)}
+    log(f"[stream] recall@{K} trajectory {[round(r, 4) for r in traj]} (end "
+        f"{traj[-1]:.4f}, min {min(traj):.4f}); the JAX package's r05 run on data of "
+        f"the same distribution: {R05_TRAJECTORY} (end 0.9442, min 0.9334)")
+    log(f"[stream] {out['deletes_per_s']:.0f} deletes/s, {out['inserts_per_s']:.0f} "
+        f"inserts/s; kernel launches over the {cycles} cycles: {launches}")
+
+    # one more delete of the same size, traced
+    lo = cycles * step
+    kill = np.array([ex.tag_to_id[t] for t in range(lo, lo + step)], np.int64)
+    sync(torch, device)
+    p = profile_call(
+        lambda: idx.delete(kill, method="scan", repair="fill", max_dead=8), device,
+        [("discovery", delete_mod, "mark_deleted"),
+         ("discovery", delete_mod, "rows_referencing_deleted"),
+         ("fill_rows", delete_mod, "fill_rows"),
+         ("drop_rows", delete_mod, "drop_deleted_rows"),
+         ("refresh_rows", packed_mod, "refresh_rows")])
+    stream_invariants(idx, cap0, rows0, "[stream] after the traced delete")
+    k2_ms = sum(_device_ms(e) for e in p["kernels"] if "block_patch" in e.key)
+    prof = {"wall_ms": p["wall_ms"], "device_ms": p["device_ms"],
+            "idle_share": p["idle_share"], "k2_ms": k2_ms,
+            "affected": idx.last_delete_stats["affected"], **p["ranges"]}
+    prof["rest_ms"] = p["device_ms"] - sum(p["ranges"].values())
+    log(f"[stream] traced delete of {step} (scan, fill, affected rows "
+        f"{prof['affected']}): wall {prof['wall_ms']:.1f} ms, device busy "
+        f"{prof['device_ms']:.2f} ms (idle share {prof['idle_share']:.3f}): discovery "
+        f"{prof['discovery']:.2f} ms, fill_rows {prof['fill_rows']:.2f} ms, "
+        f"refresh_rows {prof['refresh_rows']:.2f} ms (K2 {k2_ms:.2f} ms), drop rows "
+        f"{prof['drop_rows']:.2f} ms, rest {prof['rest_ms']:.2f} ms")
+    prof["top"] = log_top_kernels("stream", p["kernels"])
+    out["delete_profile"] = prof
+    if device.type == "cuda":
+        out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    return out
+
+
+def run_runbook(x, q, device, *, n: int = RUNBOOK_N,
+                min_recall: float = TARGET_RECALL) -> dict:
+    """A streaming runbook from an empty full-precision index (no packed
+    layout) over the first n points of the stream's data (x, q): insert n, delete
+    2% three times (two_hop_one_hop + prune, one_hop + fill, visited_topk +
+    prune), consolidate, insert the deleted rows again into the freed
+    slots, replace 2% of the tags (scan + fill) with 2% more rows,
+    consolidate; a search
+    checkpoint (mode="full", L=90) after every stage.  Raises on a
+    checkpoint below min_recall or a failed check."""
+    import numpy as np
+    import torch
+
+    from diskann_tpu_torch import GraphConfig, GraphIndex
+    from diskann_tpu_torch.bench.runbook import RunbookExecutor
+    from diskann_tpu_torch.graph.delete import rows_referencing_deleted
+
+    p = n // 50
+    cfg = GraphConfig(max_degree=64, l_build=100, alpha=1.2, beam_width=4,
+                      build_max_hops=12, max_occlusion_size=256)
+    idx = GraphIndex(D, cfg, insert_batch_size=8192, search_batch_size=STREAM_NQ,
+                     device=device)
+    ex = RunbookExecutor(idx, x[: n + p], q, k=K, l_search=90,
+                         search_kwargs={"mode": "full"})
+    search = {"operation": "search"}
+    stages = [
+        ("insert", None, [{"operation": "insert", "start": 0, "end": n}]),
+        ("delete", ("two_hop_one_hop", "prune"), [{"operation": "delete", "start": 0, "end": p}]),
+        ("delete", ("one_hop", "fill"), [{"operation": "delete", "start": p, "end": 2 * p}]),
+        ("delete", ("visited_topk", "prune"),
+         [{"operation": "delete", "start": 2 * p, "end": 3 * p}]),
+        # sweeps the references the approximate methods left behind
+        ("consolidate", None, [{"operation": "consolidate"}]),
+        ("refill", None, [{"operation": "insert", "start": 0, "end": 3 * p}]),
+        ("replace", ("scan", "fill"), [{"operation": "replace", "tags_start": 3 * p,
+                                        "tags_end": 4 * p, "ids_start": n,
+                                        "ids_end": n + p}]),
+        ("consolidate", None, [{"operation": "consolidate"}]),
+    ]
+    rows = []
+    for name, how, ops in stages:
+        if how is not None:
+            ex.delete_method, ex.delete_repair = how
+        entry, chk = ex.run(ops + [search])[-2:]
+        st = idx.state
+        dangling = int(rows_referencing_deleted(st).sum())
+        if int(st.valid.sum()) != idx.n_live:
+            raise RuntimeError(f"[runbook] {name}: n_live != valid.sum()")
+        if not torch.equal((st.adjacency >= 0).sum(1, dtype=torch.int32), st.degrees):
+            raise RuntimeError(f"[runbook] {name}: degrees do not match adjacency")
+        no_deleted_results(idx, q, idx.free_slots, f"[runbook] {name}",
+                           l_search=90, mode="full")
+        if name == "refill" and (idx.free_slots or idx.n != n):
+            raise RuntimeError(f"[runbook] the refill did not reuse the freed slots "
+                               f"({len(idx.free_slots)} left, n={idx.n})")
+        if dangling and (name == "consolidate" or (how and how[0] == "scan")):
+            raise RuntimeError(f"[runbook] {name}: {dangling} rows refer to deleted ids")
+        row = {"stage": name, "method": how, "count": entry.get("count"),
+               "s": entry["wall_s"], "recall": chk["recall"], "dangling_rows": dangling,
+               "n_live": idx.n_live}
+        rows.append(row)
+        log(f"[runbook] {name} {'/'.join(how) if how else ''} count={row['count']} "
+            f"{row['s']:.2f}s: recall@{K}={row['recall']:.4f} n_live={idx.n_live} "
+            f"rows still referring to deleted ids {dangling}")
+        if row["recall"] < min_recall:
+            raise RuntimeError(f"[runbook] {name}: recall {row['recall']:.4f} < {min_recall}")
+    return {"n": n, "stages": rows}
 
 
 def time_ms(torch, fn, reps: int = 20) -> float:
@@ -572,6 +899,24 @@ def check_k2_full(torch, table, dump: int, g) -> int:
     return 0
 
 
+def k1_bound(torch, beam, rp: int, dp: int, n: int) -> dict:
+    """K1's least time on the card for this call: the fat rows of the
+    distinct beam nodes read once (ids clamped to the table as the wrapper
+    does), the beam ids and int8 queries read once, the three outputs
+    written once, over 3.35 TB/s; against its int8 multiply-adds over
+    1,979 TOP/s.  The larger bounds it."""
+    idw, codr, cpr = -(-rp // 128), -(-rp * dp // 512), 512 // dp
+    bw = beam.shape[0]
+    nodes = int(beam.long().clamp(0, n).unique().numel())
+    moved = (nodes * (2 * idw + codr) * 512 + bw * (4 + dp)
+             + bw * (2 * idw * 128 + codr * cpr) * 4)
+    ops = 2 * bw * codr * cpr * dp
+    t_bytes, t_ops = moved / HBM_BYTES_PER_MS, ops / INT8_OPS_PER_MS
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": moved}
+
+
 def time_kernels(torch, device, n: int) -> dict:
     """Kernel vs plain at the main path's shapes, on random tables of the
     main path's size: K1 at BW = 8192 x 4 slots on the dp=64 build table
@@ -602,10 +947,13 @@ def time_kernels(torch, device, n: int) -> dict:
         plain = time_ms(torch, lambda: fatrow_expand_plain(rows, beam, qiw, rp=rp, dp=dp))
         read = bw * (2 * -(-rp // 128) + -(-rp * dp // 512)) * 512
         res[f"k1_rp{rp}_dp{dp}"] = {"ms": ms, "plain_ms": plain,
-                                     "gb_per_s": read / ms / 1e6}
+                                     "gb_per_s": read / ms / 1e6,
+                                     **k1_bound(torch, beam, rp, dp, n)}
+        b = res[f"k1_rp{rp}_dp{dp}"]
         log(f"[time] fatrow_expand rp={rp} dp={dp} bw={bw} table {rows.numel() * 4 / 1e9:.2f} GB: "
             f"kernel {ms:.3f} ms ({read / ms / 1e6:.0f} GB/s of rows read), "
-            f"plain {plain:.3f} ms")
+            f"plain {plain:.3f} ms, bound {b['bound_ms']:.3f} ms "
+            f"({b['bound_bytes'] / 1e6:.1f} MB at 3.35 TB/s, by {b['bound_by']})")
         if dp == 64:
             n_blocks = rows.shape[0] // 8
             nb = 8192 * (nwr // 8)
@@ -615,13 +963,21 @@ def time_kernels(torch, device, n: int) -> dict:
             vals.random_(generator=g)
             ms = time_ms(torch, lambda: block_patch(rows, idx, vals))
             plain = time_ms(torch, lambda: block_patch_plain(rows, idx, vals))
-            res["k2_int32"] = {"ms": ms, "plain_ms": plain, "patches": nb,
-                               "gb_per_s": 2 * nb * 4096 / ms / 1e6}
+            # the one library call that computes the same function
+            ridx = (idx.long()[:, None] * 8
+                    + torch.arange(8, device=device)[None, :]).reshape(-1)
+            lib = time_ms(torch, lambda: rows.index_copy_(0, ridx, vals))
+            moved = 2 * nb * 8 * 128 * 4 + nb * 4
+            res["k2_int32"] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                               "patches": nb, "gb_per_s": 2 * nb * 4096 / ms / 1e6,
+                               "bound_ms": moved / HBM_BYTES_PER_MS,
+                               "bound_by": "bytes"}
             log(f"[time] block_patch int32 patches={nb} table "
                 f"{rows.numel() * 4 / 1e9:.2f} GB: kernel {ms:.3f} ms "
-                f"({2 * nb * 4096 / ms / 1e6:.0f} GB/s moved), "
-                f"plain index_copy_ {plain:.3f} ms")
-            del idx, vals
+                f"({2 * nb * 4096 / ms / 1e6:.0f} GB/s moved), plain {plain:.3f} ms, "
+                f"index_copy_ {lib:.3f} ms, bound {res['k2_int32']['bound_ms']:.3f} ms "
+                f"({moved / 1e6:.1f} MB at 3.35 TB/s)")
+            del idx, vals, ridx
         else:
             res["k2_err"] = check_k2_full(torch, rows, n * nwr // 8, g)
         del rows, beam, qiw
@@ -692,22 +1048,48 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     times = time_kernels(torch, device, args.n)
+    torch.cuda.empty_cache()
+
+    # the stream path: deletes launch K2 (refresh_rows), inserts and the
+    # checkpoint searches launch both
+    x, q = stream_data()
+    torch.cuda.reset_peak_memory_stats(device)
+    stream = run_stream(x, q, device, k1, k2)
+    stream_launches = stream["launches"]
+    if min(stream_launches.values()) == 0:
+        raise RuntimeError(f"a kernel of the stream path never launched: {stream_launches}")
+    torch.cuda.empty_cache()
+    k1.launches = 0
+    k2.launches = 0
+    runbook = run_runbook(x, q, device)
+    runbook["launches"] = {"fatrow_expand": k1.launches, "block_patch": k2.launches}
+    log(f"[runbook] kernel launches (full precision, no packed layout): "
+        f"{runbook['launches']}")
+    del x, q
+
+    k1t, k2t = times["k1_rp84_dp128"], times["k2_int32"]
     kernels = [
         {"name": "fatrow_expand", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": launches["fatrow_expand"],
          "filtered_launches": filt_launches["fatrow_expand"],
+         "stream_launches": stream_launches["fatrow_expand"],
          "max_abs_err": max(k1_err, times["k1_err"]),
-         "ms": times["k1_rp84_dp128"]["ms"],
-         "plain_ms": times["k1_rp84_dp128"]["plain_ms"],
+         "ms": k1t["ms"], "plain_ms": k1t["plain_ms"],
+         "bound_ms": k1t["bound_ms"], "bound_by": k1t["bound_by"],
+         "library_ms": None,
          "shape": "rp=84 dp=128 bw=32768",
          "ms_rp88_dp64": times["k1_rp88_dp64"]["ms"],
-         "plain_ms_rp88_dp64": times["k1_rp88_dp64"]["plain_ms"]},
+         "plain_ms_rp88_dp64": times["k1_rp88_dp64"]["plain_ms"],
+         "bound_ms_rp88_dp64": times["k1_rp88_dp64"]["bound_ms"]},
         {"name": "block_patch", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": launches["block_patch"],
+         "filtered_launches": filt_launches["block_patch"],
+         "stream_launches": stream_launches["block_patch"],
          "max_abs_err": max(k2_err, times["k2_err"]),
-         "ms": times["k2_int32"]["ms"],
-         "plain_ms": times["k2_int32"]["plain_ms"],
-         "shape": f"int32 patches={times['k2_int32']['patches']}"},
+         "ms": k2t["ms"], "plain_ms": k2t["plain_ms"],
+         "bound_ms": k2t["bound_ms"], "bound_by": k2t["bound_by"],
+         "library_ms": k2t["library_ms"],
+         "shape": f"int32 patches={k2t['patches']}"},
     ]
     summary = {k: main_out[k] for k in ("n", "build_s", "build_points_per_s", "attach_s")}
     summary["peak_gib"] = peak / 2**30
@@ -716,6 +1098,8 @@ def main(argv=None) -> int:
     summary["filtered"] = filt_rows
     summary["full_route"] = full
     summary["filtered_profile"] = profiled
+    summary["stream"] = stream
+    summary["runbook"] = runbook
     log("[summary] " + json.dumps(summary))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -6,11 +6,17 @@ package wrote in Pallas for the TPU are hand-written CUDA for Hopper
 (`ops/kernels/csrc/`), built with nvcc at first use.  Modules sit at the
 same paths as their JAX counterparts.
 
-    bench/      synthetic clustered data, recall
-    graph/      Vamana: packed build, search, prune, packed layout
+    bench/      synthetic clustered data, recall, the streaming runbook
+    graph/      Vamana: full and packed build, search, prune, packed
+                layout, in-place delete and consolidation
     flat/       brute-force index (the groundtruth)
     ops/        distances, top-k, the CUDA kernels and their plain versions
     convert.py  carry a JAX-built index across
+    devices.py  the default device (the CUDA card)
+
+Entry points put their tensors on the CUDA card unless given another
+device; on a host without a card they raise, so CPU use says
+``device="cpu"``.
 """
 
 from diskann_tpu_torch.flat.index import FlatIndex

@@ -1,1 +1,1 @@
-"""Benchmark helpers: synthetic data and recall."""
+"""Benchmark helpers: synthetic data, recall and the streaming runbook."""

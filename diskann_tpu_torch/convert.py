@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from diskann_tpu_torch.devices import default_device
 from diskann_tpu_torch.filters.labels import LabelSet
 from diskann_tpu_torch.graph.config import GraphConfig
 from diskann_tpu_torch.graph.index import GraphIndex
@@ -44,6 +45,7 @@ def graph_index_from_arrays(
     packed: dict | None,
     n: int,
     n_deleted: int = 0,
+    free_slots=(),
     labels: dict | None = None,
     device=None,
     **index_kwargs,
@@ -53,10 +55,13 @@ def graph_index_from_arrays(
     config: the `GraphConfig` fields (``metric`` as a `Metric` or its
     value); graph: the `GraphArrays` fields as numpy arrays; packed: the
     `PackedState` fields as numpy arrays plus ``r_pack``, or None;
-    n, n_deleted: the index's counters; labels: ``{"vocab": dict, "bits":
+    n, n_deleted: the index's counters; free_slots: its freelist, in
+    order (the last entry is reused first); labels: ``{"vocab": dict, "bits":
     [cap, n_words] uint32 array}`` of the reference's `LabelSet`, or None
     (the words are carried as int32 with the same bits).  index_kwargs go
-    to `GraphIndex` (batch sizes, backedge cap)."""
+    to `GraphIndex` (batch sizes, backedge cap).  The index goes on
+    ``device``, by default the CUDA card."""
+    device = default_device(device)
     cfg = dict(config)
     cfg["metric"] = Metric(cfg["metric"])
     cfg = GraphConfig(**cfg)
@@ -93,4 +98,5 @@ def graph_index_from_arrays(
         idx.labels = ls
     idx.n = int(n)
     idx.n_deleted = int(n_deleted)
+    idx.free_slots = [int(i) for i in free_slots]
     return idx

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from diskann_tpu_torch.devices import default_device
 from diskann_tpu_torch.ops.distance import Metric, distance_to_set, squared_norms
 from diskann_tpu_torch.ops.topk import merge_sorted
 
@@ -16,10 +17,13 @@ from diskann_tpu_torch.ops.topk import merge_sorted
 class FlatIndex:
     """Exact top-k index over a database held on one device."""
 
-    def __init__(self, vectors, metric: Metric = Metric.L2):
-        """vectors: [n, d] numpy array or tensor; the scan runs on the
-        tensor's device."""
-        vectors = torch.as_tensor(vectors, dtype=torch.float32)
+    def __init__(self, vectors, metric: Metric = Metric.L2, *, device=None):
+        """vectors: [n, d] numpy array or tensor.  The scan runs on
+        ``device``; by default on a tensor's own device, and for a numpy
+        array on the CUDA card (`devices.default_device`)."""
+        if device is not None or not isinstance(vectors, torch.Tensor):
+            device = default_device(device)
+        vectors = torch.as_tensor(vectors, dtype=torch.float32, device=device)
         self.n, self.dim = vectors.shape
         self.metric = metric
         self.vectors = vectors

@@ -1,4 +1,4 @@
-"""Vamana graph: packed build, search and prune."""
+"""Vamana graph: build, search, prune, in-place delete and consolidation."""
 
 from diskann_tpu_torch.graph.config import GraphConfig, PruneKind
 from diskann_tpu_torch.graph.index import GraphIndex

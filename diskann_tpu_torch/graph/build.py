@@ -1,15 +1,16 @@
-"""Batched Vamana construction — the packed `multi_insert` path (PyTorch
-port of `diskann_tpu/graph/build.py`).
+"""Batched Vamana construction — the `multi_insert` path (PyTorch port of
+`diskann_tpu/graph/build.py`).
 
 A batch is committed in three phases, each over the whole batch as dense
 tensors:
 
-  1. set elements — write the batch's vectors and int8 codes;
-  2. candidate generation — one router-seeded beam search over the packed
-     fat-row table, plus intra-batch candidates, then one batched
-     RobustPrune on full-precision vectors;
+  1. set elements — write the batch's vectors (and int8 codes);
+  2. candidate generation — one beam search (router-seeded over the packed
+     fat-row table, or full precision from the start points when the
+     index has no packed layout), plus intra-batch candidates, then one
+     batched RobustPrune on full-precision vectors;
   3. graph update — commit out-edges (3a), append backedges by target with
-     a sort + segmented rank (3b), re-prune overfull targets (3c); the
+     a sort + segmented rank (3b), re-prune overfull targets (3c); a
      packed table follows every change (`refresh_rows`, `append_edges`).
 
 The graph and packed tables are updated in place: the reference donated
@@ -28,7 +29,7 @@ from diskann_tpu_torch.graph import packed as packed_mod
 from diskann_tpu_torch.graph.config import GraphConfig
 from diskann_tpu_torch.graph.prune import robust_prune
 from diskann_tpu_torch.graph.scorers import packed_router_starts, packed_scorer
-from diskann_tpu_torch.graph.search import beam_search_scored
+from diskann_tpu_torch.graph.search import beam_search, beam_search_scored
 from diskann_tpu_torch.graph.state import GraphArrays, set_vectors
 from diskann_tpu_torch.ops.distance import pairwise_distance
 from diskann_tpu_torch.ops.topk import SENTINEL, sort_with
@@ -83,18 +84,19 @@ def insert_batch(
     row_valid: torch.Tensor,    # [M] bool
     start_ids: torch.Tensor,    # [S] i32
     config: GraphConfig,
-    packed: packed_mod.PackedState,
+    packed: packed_mod.PackedState | None = None,
     *,
     backedge_src_cap: int = 64,
     router=None,                # (rc [S, dp] i8, raux [S] f32, rids [S] i32) | None
 ):
     """Insert a batch of M new points at ``slot_ids``, in place.
 
-    Candidate generation walks the packed int8 layout; prune decisions are
-    full precision (distances recomputed from the raw vectors).  Returns
-    (state, packed, stats)."""
-    if packed is None:
-        raise NotImplementedError("only the packed build is ported")
+    With a `PackedState`, candidate generation walks the packed int8
+    layout, the prune recomputes distances from the raw vectors, and the
+    packed table is kept in step.  Without one (the full build), the walk
+    is the full-precision `beam_search` from ``start_ids`` (``router`` is
+    ignored) and the prune takes the walk's distances.  Returns (state,
+    packed, stats)."""
     dev = new_vecs.device
     m = new_vecs.shape[0]
     r = config.max_degree
@@ -113,30 +115,38 @@ def insert_batch(
 
     # ---------------- phase 1: set elements ----------------
     set_vectors(state, slot_ids, new_vecs, row_valid=row_valid)
-    codes, aux = packed_mod.encode(packed, new_vecs, metric)
-    packed_mod.set_self_codes(packed, new_ids, codes, aux)
+    if packed is not None:
+        codes, aux = packed_mod.encode(packed, new_vecs, metric)
+        packed_mod.set_self_codes(packed, new_ids, codes, aux)
 
     # ---------------- phase 2: candidate generation ----------------
-    if router is not None:
-        rc, raux, rids = router
-        rst = torch.cat([
-            packed_router_starts(rc, raux, rids, packed.proj, packed.pscale,
-                                 packed.pbias2, q, metric, config.router_starts)
-            for q in new_vecs.split(_ROUTER_ROWS)
-        ])
-        search_start = torch.cat(
-            [start_ids[None, :].expand(m, start_ids.shape[0]), rst], 1
+    if packed is None:
+        res = beam_search(
+            state.vectors, state.sq_norms, state.adjacency, start_ids, new_vecs,
+            metric=metric, l_search=config.l_build, beam_width=config.beam_width,
+            max_hops=mh_eff, pool_capacity=pool_capacity, record_pool=True,
+            query_valid=row_valid,
         )
-        search_start = torch.where(row_valid[:, None], search_start, -1)
     else:
         search_start = start_ids
-    sdef, sdata = packed_scorer(packed, metric)
-    res = beam_search_scored(
-        sdef, sdata, state.adjacency, search_start, new_vecs,
-        l_search=config.l_build, beam_width=config.beam_width,
-        max_hops=mh_eff, pool_capacity=pool_capacity, record_pool=True,
-        dedup="merge", query_valid=row_valid,
-    )
+        if router is not None:
+            rc, raux, rids = router
+            rst = torch.cat([
+                packed_router_starts(rc, raux, rids, packed.proj, packed.pscale,
+                                     packed.pbias2, q, metric, config.router_starts)
+                for q in new_vecs.split(_ROUTER_ROWS)
+            ])
+            search_start = torch.cat(
+                [start_ids[None, :].expand(m, start_ids.shape[0]), rst], 1
+            )
+            search_start = torch.where(row_valid[:, None], search_start, -1)
+        sdef, sdata = packed_scorer(packed, metric)
+        res = beam_search_scored(
+            sdef, sdata, state.adjacency, search_start, new_vecs,
+            l_search=config.l_build, beam_width=config.beam_width,
+            max_hops=mh_eff, pool_capacity=pool_capacity, record_pool=True,
+            dedup="merge", query_valid=row_valid,
+        )
 
     # intra-batch candidates
     ibc = config.intra_batch_candidates
@@ -169,8 +179,10 @@ def insert_batch(
     cand_d, cand_ids = sort_with(cand_d, cand_ids)
     cand_ids = cand_ids[:, :c_cap]
 
+    # the packed walk's distances are approximate: the prune recomputes them
     out_ids, _, out_n = chunked_robust_prune(
-        state.vectors, new_vecs, cand_ids, None, new_ids, config,
+        state.vectors, new_vecs, cand_ids,
+        None if packed is not None else cand_d[:, :c_cap], new_ids, config,
         degree=r,
     )
     out_ids = torch.where(row_valid[:, None], out_ids, -1)
@@ -181,7 +193,8 @@ def insert_batch(
     w_live = slot_ids[row_valid].long()
     state.adjacency[w_live] = out_rows[row_valid]
     state.degrees[w_live] = out_n[row_valid]
-    packed_mod.refresh_rows(packed, state.adjacency, w_live)
+    if packed is not None:
+        packed_mod.refresh_rows(packed, state.adjacency, w_live)
 
     # ---------------- phase 3b: backedges ----------------
     tgt = out_ids[:, : min(config.max_backedges, r)] \
@@ -217,7 +230,8 @@ def insert_batch(
     adj_flat[tkey_c[append_ok] * r_slack + slot[append_ok]] = src_s[append_ok]
     t_app = tkey_c[append_ok]
     state.degrees.index_add_(0, t_app, torch.ones_like(t_app, dtype=torch.int32))
-    packed_mod.append_edges(packed, tkey_s, slot, src_s, append_ok)
+    if packed is not None:
+        packed_mod.append_edges(packed, tkey_s, slot, src_s, append_ok)
 
     # ---------------- phase 3c: re-prune overfull targets ----------------
     overflow = ok_s & (slot >= r_slack)
@@ -246,6 +260,7 @@ def insert_batch(
             rp_ids, (0, r_slack - r), value=-1
         )
         state.degrees[t_l] = rp_n
-        packed_mod.refresh_rows(packed, state.adjacency, t_l)
+        if packed is not None:
+            packed_mod.refresh_rows(packed, state.adjacency, t_l)
 
     return state, packed, InsertStats(cmps=res.cmps, hops=res.hops)

@@ -1,14 +1,20 @@
-"""GraphIndex — the user-facing Vamana index (PyTorch port of the main-path
-surface of `diskann_tpu/graph/index.py`).
+"""GraphIndex — the user-facing Vamana index (PyTorch port of
+`diskann_tpu/graph/index.py`).
 
-Ported: packed build (`build(..., build_mode="packed")`, `insert`), the
-packed re-attach (`attach_packed`), search in modes "full" (full-precision
-walk) and "packed" (router entry points, packed hop loop, full-precision
-rerank), and label-filtered search (`attach_labels`, `search_filtered`:
-the exact posting-list scan, the packed inline-beta walk and the
-full-precision inline walk with AdaptiveL resume or multihop).  Every
-tensor lives on the index's ``device``; the host only orchestrates
-batches, capacity and start points.
+Ported: the build in both modes (`build(..., build_mode="full")`, the
+default, walks full-precision vectors; "packed" keeps the packed int8
+layout up to date and walks it) and `insert`, which takes freed slots off
+the freelist (last freed, first reused) before fresh ones; streaming
+deletes (`delete`: in-place repair of the in-neighbours by one of four
+discovery methods and two repairs, `graph/delete.py`) and `consolidate`;
+the start-point strategies (`set_start_strategy`); the packed re-attach
+(`attach_packed`); search in modes "full" (full-precision walk) and
+"packed" (router entry points, packed hop loop, full-precision rerank);
+and label-filtered search (`attach_labels`, `search_filtered`: the exact
+posting-list scan, the packed inline-beta walk and the full-precision
+inline walk with AdaptiveL resume or multihop).  Every tensor lives on the
+index's ``device`` (the CUDA card unless the caller names another); the
+host only orchestrates batches, capacity, the freelist and start points.
 """
 
 from __future__ import annotations
@@ -18,7 +24,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from diskann_tpu_torch.devices import default_device
 from diskann_tpu_torch.filters import LabelSet, compile_accept, parse_predicate
+from diskann_tpu_torch.graph import delete as delete_mod
 from diskann_tpu_torch.graph import packed as packed_mod
 from diskann_tpu_torch.graph import state as graph_state
 from diskann_tpu_torch.graph.build import insert_batch
@@ -37,6 +45,13 @@ from diskann_tpu_torch.ops.topk import sort_with
 # fat rows rebuilt per refresh_rows call in attach_packed: bounds the
 # [rows, r_pack, dp] code gather (352 MB at dp=128)
 _REFRESH_ROWS = 1 << 15
+
+# rows patched per repair batch by `consolidate`
+_CONSOLIDATE_ROWS = 1024
+
+# entry-point strategies of `set_start_strategy`
+_START_STRATEGIES = ("medoid", "first_vector", "random_samples",
+                     "latin_hypercube", "random_vectors")
 
 # query wire dtypes of `query_dtype` (the queries are rounded through the
 # dtype, then computed on in float32)
@@ -181,7 +196,7 @@ class GraphIndex:
     ):
         self.config = config or GraphConfig()
         self.dim = dim
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = default_device(device)
         self.insert_batch_size = insert_batch_size
         self.search_batch_size = search_batch_size
         # per-overfull-target cap on batch backedge sources entering the
@@ -189,6 +204,8 @@ class GraphIndex:
         self.build_backedge_src_cap = build_backedge_src_cap
         self.n = 0
         self.n_deleted = 0
+        # freed slots, reused last-in first-out by `insert`
+        self.free_slots: list[int] = []
         self.packed: packed_mod.PackedState | None = None
         self.labels: LabelSet | None = None
         self.state = graph_state.alloc(
@@ -196,6 +213,8 @@ class GraphIndex:
             self.config.max_degree_with_slack, device=self.device,
         )
         self.last_insert_stats: dict | None = None
+        self.last_delete_stats: dict | None = None
+        self._start_strategy = ("medoid", 1, 0)
         self._auto_start: torch.Tensor | None = None
         self._router_ids: torch.Tensor | None = None
         self._router_rows_cache: tuple | None = None
@@ -205,6 +224,10 @@ class GraphIndex:
     def n_live(self) -> int:
         return self.n - self.n_deleted
 
+    @property
+    def metric(self) -> Metric:
+        return self.config.metric
+
     # ------------------------------------------------------------------ build
     @classmethod
     def build(
@@ -213,35 +236,41 @@ class GraphIndex:
         config: GraphConfig | None = None,
         *,
         insert_batch_size: int = 1024,
-        build_mode: str = "packed",
+        build_mode: str = "full",
         packed_dp: int = 64,
         capacity: int | None = None,
         device=None,
         **kwargs,
     ) -> "GraphIndex":
         """Bulk-build an index over `vectors` ([n, d] numpy array or tensor)
-        with batched multi_insert, maintaining the packed int8 layout and
-        walking it for candidate generation.  Only build_mode="packed" is
-        ported.  A tensor's device is the index's device unless `device`
-        says otherwise."""
-        if build_mode != "packed":
-            raise NotImplementedError(f"build_mode={build_mode!r} is not ported")
+        with batched multi_insert.
+
+        build_mode="full" walks the full-precision vectors for candidate
+        generation; "packed" keeps the packed int8 layout (dp =
+        `packed_dp`) up to date from the first batch on and walks it, and
+        the layout then serves `search(mode="packed")`.  A tensor's device
+        is the index's device unless `device` says otherwise; numpy input
+        goes to the CUDA card by default."""
+        if build_mode not in ("full", "packed"):
+            raise ValueError(f"unknown build_mode {build_mode!r}")
         if isinstance(vectors, torch.Tensor):
             device = device if device is not None else vectors.device
-            sample = vectors[: 1 << 16].float().cpu().numpy()
         else:
             vectors = np.asarray(vectors, np.float32)
-            sample = vectors[: 1 << 16]
         n, dim = vectors.shape
         idx = cls(dim, config, capacity=max(capacity or 0, n, insert_batch_size),
                   insert_batch_size=insert_batch_size, device=device, **kwargs)
-        proj, pscale, pbias2 = packed_mod.train_packed(
-            sample, min(packed_dp, dim), idx.config.metric, device=idx.device
-        )
-        idx.packed = packed_mod.alloc_packed(
-            proj, pscale, pbias2, idx.state.capacity,
-            idx.config.max_degree_with_slack,
-        )
+        if build_mode == "packed":
+            sample = vectors[: 1 << 16]
+            if isinstance(sample, torch.Tensor):
+                sample = sample.float().cpu().numpy()
+            proj, pscale, pbias2 = packed_mod.train_packed(
+                sample, min(packed_dp, dim), idx.config.metric, device=idx.device
+            )
+            idx.packed = packed_mod.alloc_packed(
+                proj, pscale, pbias2, idx.state.capacity,
+                idx.config.max_degree_with_slack,
+            )
         idx.insert(vectors)
         return idx
 
@@ -258,12 +287,29 @@ class GraphIndex:
                 self.labels.bits, (0, 0, 0, new_cap - cap))
             self.labels.capacity = new_cap
 
+    def set_start_strategy(self, strategy: str = "medoid", k: int = 1,
+                           seed: int = 0) -> None:
+        """Pick the walk's entry points (`graph_state.start_ids`): "medoid"
+        (default), "first_vector", "random_samples", "latin_hypercube" or
+        "random_vectors", with ``k`` points drawn from ``seed``.  Derived
+        again after every insert and delete, like the medoid."""
+        if strategy not in _START_STRATEGIES:
+            raise ValueError(f"unknown start strategy {strategy!r}")
+        self._start_strategy = (strategy, k, seed)
+        self._invalidate_start()
+
     def _start(self) -> torch.Tensor:
-        """The medoid start point, [1] int32 (-1 while the index is empty)."""
+        """The start points of the chosen strategy, [S] int32 ([-1] while
+        the index is empty), cached until the next mutation."""
         if self.n_live <= 0:
             return torch.full((1,), -1, dtype=torch.int32, device=self.device)
         if self._auto_start is None:
-            self._auto_start = graph_state.medoid(self.state, self.n_live)[None]
+            strat, k, seed = self._start_strategy
+            if strat == "medoid":
+                self._auto_start = graph_state.medoid(self.state, self.n_live)[None]
+            else:
+                self._auto_start = graph_state.start_ids(self.state, self.n,
+                                                         strat, k, seed)
         return self._auto_start
 
     def _invalidate_start(self):
@@ -273,19 +319,27 @@ class GraphIndex:
 
     # ----------------------------------------------------------------- insert
     def insert(self, vectors) -> np.ndarray:
-        """Insert vectors; returns their assigned internal ids.  The batch is
-        cut into `insert_batch_size` minibatches, each committed by
-        `graph/build.insert_batch`.  Needs the packed layout."""
-        if self.packed is None:
-            raise NotImplementedError(
-                "only packed inserts are ported: build with build_mode='packed'"
-            )
+        """Insert vectors; returns their assigned internal ids.
+
+        Slots freed by `delete` are taken first, last freed first, then
+        fresh slots at the high-water mark ``n``; capacity grows only for
+        the fresh ones.  The batch is cut into `insert_batch_size`
+        minibatches, each committed by `graph/build.insert_batch`: on the
+        packed layout (kept up to date, router entry points once enough
+        rows are committed) when one is attached, else on the
+        full-precision vectors."""
         vectors = torch.as_tensor(vectors, dtype=torch.float32, device=self.device)
         if vectors.dim() == 1:
             vectors = vectors[None]
         m_total = vectors.shape[0]
-        slots = np.arange(self.n, self.n + m_total)
-        self._ensure_capacity(self.n + _round_up(m_total, self.insert_batch_size))
+        reuse = min(len(self.free_slots), m_total)
+        slots = np.empty((m_total,), np.int64)
+        if reuse:
+            slots[:reuse] = self.free_slots[-reuse:][::-1]
+            del self.free_slots[-reuse:]
+        fresh = m_total - reuse
+        slots[reuse:] = np.arange(self.n, self.n + fresh)
+        self._ensure_capacity(self.n + _round_up(fresh, self.insert_batch_size))
 
         bs = self.insert_batch_size
         cmps = torch.zeros((), dtype=torch.int64, device=self.device)
@@ -295,7 +349,8 @@ class GraphIndex:
         # committed; the sampled table is re-gathered every 16 batches.
         base_n = self.n
         r_size = self.config.router_size
-        use_router = r_size > 0 and self.config.router_starts > 0
+        use_router = (self.packed is not None and r_size > 0
+                      and self.config.router_starts > 0)
         router = None
         next_router_refresh = 0
         for bi, off in enumerate(range(0, m_total, bs)):
@@ -322,9 +377,10 @@ class GraphIndex:
                 self.config, self.packed,
                 backedge_src_cap=self.build_backedge_src_cap, router=router,
             )
-            self.n = max(self.n, base_n + off + m)
+            self.n = max(self.n, int(slots[off:off + m].max()) + 1)
             cmps += stats.cmps.sum()
             hops += stats.hops.sum()
+        self.n_deleted -= reuse
         self.last_insert_stats = {"cmps": int(cmps), "hops": int(hops)}
         return slots
 
@@ -720,3 +776,44 @@ class GraphIndex:
         fi = fi.cpu().numpy()
         return (fd.cpu().numpy(), fi,
                 _stats(res.cmps.cpu().numpy(), res.hops.cpu().numpy(), fi))
+
+    # ----------------------------------------------------------------- delete
+    def delete(self, ids, *, method: str = "scan", k_value: int = 16,
+               l_value: int | None = None, repair: str = "prune",
+               max_dead: int = 4, repl_cap: int = 16) -> None:
+        """In-place delete (`graph/delete.inplace_delete`): repair the rows
+        that refer to the deleted nodes, clear the nodes' rows, and put
+        their slots on the freelist for later inserts.  Ids already
+        deleted, out of range or repeated are skipped.
+
+        method: "scan" (every live row that refers to a deleted id; no
+        dangling reference survives), "one_hop", "two_hop_one_hop" or
+        "visited_topk" (``k_value`` replacements from an ``l_value``-wide
+        search).  repair: "prune" RobustPrunes each patched row back to R;
+        "fill" drops the dead entries and tops the row up with the nearest
+        replacements, with no occlusion scan.  The counts of the call are
+        in ``last_delete_stats``."""
+        self.last_delete_stats = delete_mod.inplace_delete(
+            self, ids, method=method, k_value=k_value, l_value=l_value,
+            repair=repair, max_dead=max_dead, repl_cap=repl_cap,
+        )
+        self._invalidate_start()
+
+    def consolidate(self) -> None:
+        """Cleanup sweep: prune-repair every live row that still refers to
+        a deleted node (the approximate delete methods can leave some),
+        clear the deleted nodes' rows, and refresh the packed rows of both
+        when a packed layout is attached."""
+        st = self.state
+        affected = torch.nonzero(delete_mod.rows_referencing_deleted(st)).squeeze(1)
+        for off in range(0, affected.shape[0], _CONSOLIDATE_ROWS):
+            delete_mod.patch_rows(st, affected[off:off + _CONSOLIDATE_ROWS],
+                                  self.config)
+        # deleted rows that still hold entries (e.g. carried across)
+        stale = torch.cat([affected, torch.nonzero(
+            ~st.valid & (st.adjacency >= 0).any(1)).squeeze(1)])
+        delete_mod.drop_deleted_rows(st)
+        if self.packed is not None:
+            for off in range(0, stale.shape[0], _CONSOLIDATE_ROWS):
+                packed_mod.refresh_rows(self.packed, st.adjacency,
+                                        stale[off:off + _CONSOLIDATE_ROWS])

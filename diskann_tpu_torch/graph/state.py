@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from diskann_tpu_torch.ops.distance import squared_norms
@@ -97,3 +98,44 @@ def medoid(state: GraphArrays, n: int) -> torch.Tensor:
     d2 = state.sq_norms - 2.0 * (state.vectors @ mean)
     d2 = torch.where(state.valid, d2, float("inf"))
     return torch.argmin(d2).to(torch.int32)
+
+
+def start_ids(state: GraphArrays, n: int, strategy: str = "medoid", k: int = 1,
+              seed: int = 0) -> torch.Tensor:
+    """Entry-point ids for a graph walk, [S] int32 ascending — the start
+    point strategy family:
+
+    - "medoid": the live vector closest to the running mean;
+    - "first_vector": the first live id;
+    - "random_samples": ``k`` random live ids;
+    - "latin_hypercube": the live ids cut into ``k`` strata, one random id
+      from each;
+    - "random_vectors": ``k`` random Gaussian vectors, each mapped to its
+      nearest live node.
+
+    The random strategies draw from ``np.random.default_rng(seed)`` over
+    the live ids among the first ``n`` slots, as the reference does."""
+    if strategy == "medoid":
+        return medoid(state, n)[None]
+    dev = state.adjacency.device
+    valid = state.valid[:n].cpu().numpy()
+    live = np.nonzero(valid)[0]
+    if len(live) == 0:
+        return torch.full((max(k, 1),), -1, dtype=torch.int32, device=dev)
+    rng = np.random.default_rng(seed)
+    if strategy == "first_vector":
+        sel = live[:1]
+    elif strategy == "random_samples":
+        sel = rng.choice(live, size=min(k, len(live)), replace=False)
+    elif strategy == "latin_hypercube":
+        sel = np.array([rng.choice(s) for s in np.array_split(live, max(k, 1))
+                        if len(s)], dtype=np.int64)
+    elif strategy == "random_vectors":
+        q = rng.standard_normal((max(k, 1), state.dim)).astype(np.float32)
+        q = torch.from_numpy(q).to(dev)
+        d = state.sq_norms[None, :n] - 2.0 * (q @ state.vectors[:n].float().T)
+        d = torch.where(state.valid[None, :n], d, float("inf"))
+        sel = torch.argmin(d, dim=1).cpu().numpy()
+    else:
+        raise ValueError(f"unknown start strategy {strategy!r}")
+    return torch.as_tensor(np.unique(sel).astype(np.int32), device=dev)

@@ -19,14 +19,17 @@ import torch
 from diskann_tpu import FlatIndex as JFlat
 from diskann_tpu import GraphConfig as JConfig
 from diskann_tpu import GraphIndex as JIndex
+from diskann_tpu import Metric as JMetric
+from diskann_tpu.graph.state import start_ids as j_start_ids
 from diskann_tpu.graph.index import _filter_deleted as j_filter_deleted
-from diskann_tpu_torch import FlatIndex, GraphConfig, GraphIndex
+from diskann_tpu_torch import FlatIndex, GraphConfig, GraphIndex, Metric
 from diskann_tpu_torch.bench.harness import make_clustered
 from diskann_tpu_torch.bench.recall import knn_recall
 from diskann_tpu_torch.convert import graph_index_from_arrays
 from diskann_tpu_torch.graph import packed as tpk
+from diskann_tpu_torch.graph import state as tpk_state
 from diskann_tpu_torch.graph.index import _filter_deleted
-from torch_port_helpers import jax_index_arrays, n, t
+from torch_port_helpers import CPU, jax_index_arrays, n, t
 
 N, D, NQ, K, L = 2048, 32, 256, 10, 32
 CFG = dict(max_degree=16, l_build=32, beam_width=4)
@@ -35,7 +38,7 @@ CFG = dict(max_degree=16, l_build=32, beam_width=4)
 @pytest.fixture(scope="module")
 def data():
     x, q = make_clustered(11, N, NQ, D, n_clusters=64, sigma=0.35)
-    _, gt = FlatIndex(x).search(q, K)
+    _, gt = FlatIndex(x, device=CPU).search(q, K)
     return x, q, gt
 
 
@@ -52,7 +55,7 @@ def jax_index(data):
 def torch_index(data):
     x, _, _ = data
     idx = GraphIndex.build(x, GraphConfig(**CFG), insert_batch_size=512,
-                           build_mode="packed", packed_dp=32)
+                           build_mode="packed", packed_dp=32, device=CPU)
     # the build-time table, before the re-attach replaces it
     refreshed = tpk.refresh_rows(
         tpk.PackedState(**{**idx.packed.__dict__, "rows": idx.packed.rows.clone()}),
@@ -138,9 +141,10 @@ def test_routed_build_keeps_invariants():
     x, q = make_clustered(5, 1024, 64, 16, n_clusters=32, sigma=0.35)
     idx = GraphIndex.build(x, GraphConfig(max_degree=12, l_build=24, beam_width=4,
                                           router_size=64),
-                           insert_batch_size=256, packed_dp=16)
+                           insert_batch_size=256, build_mode="packed",
+                           packed_dp=16, device=CPU)
     _check_invariants(idx)
-    _, gt = FlatIndex(x).search(q, K)
+    _, gt = FlatIndex(x, device=CPU).search(q, K)
     _, ids, _ = idx.search(q, K, l_search=24, beam_width=4, mode="packed")
     assert knn_recall(ids, gt, K) >= 0.9
 
@@ -151,8 +155,8 @@ def test_unported_modes_raise(torch_index):
         idx.search(np.zeros((1, D), np.float32), K, mode="pq")
     with pytest.raises(NotImplementedError):
         idx.search(np.zeros((1, D), np.float32), K, mode="packed", query_dtype="i8")
-    with pytest.raises(NotImplementedError):
-        GraphIndex.build(np.zeros((8, D), np.float32), build_mode="full")
+    with pytest.raises(ValueError):
+        GraphIndex.build(np.zeros((8, D), np.float32), build_mode="pq", device=CPU)
 
 
 def test_filter_deleted_matches_jax():
@@ -172,14 +176,15 @@ def test_insert_grows_capacity_and_keeps_invariants():
     x, q = make_clustered(6, 1400, 64, 16, n_clusters=32, sigma=0.35)
     idx = GraphIndex.build(x[:1000], GraphConfig(max_degree=12, l_build=24,
                                                  beam_width=4, router_size=0),
-                           insert_batch_size=256, packed_dp=16)
+                           insert_batch_size=256, build_mode="packed",
+                           packed_dp=16, device=CPU)
     cap0 = idx.state.capacity
     slots = idx.insert(x[1000:])
     np.testing.assert_array_equal(slots, np.arange(1000, 1400))
     assert idx.n == 1400 and idx.state.capacity > cap0
     assert idx.packed.rows.shape[0] == (idx.state.capacity + 1) * idx.packed.nwr
     _check_invariants(idx)
-    _, gt = FlatIndex(x).search(q, K)
+    _, gt = FlatIndex(x, device=CPU).search(q, K)
     _, ids, _ = idx.search(q, K, l_search=24, beam_width=4, mode="packed")
     assert knn_recall(ids, gt, K) >= 0.9
 
@@ -234,3 +239,58 @@ def test_convert_rejects_mismatched_arrays(jax_index):
     packed = dict(arrays["packed"], rows=arrays["packed"]["rows"][:-8])
     with pytest.raises(ValueError):
         graph_index_from_arrays(**dict(arrays, packed=packed))
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_full_build_matches_jax(metric):
+    # build_mode="full" (the default): the full-precision walk and a prune
+    # on its distances.  Batch 256 <= 2 x max_occlusion_size keeps JAX's
+    # intra-batch candidates exact (no approx_min_k), so the graphs agree.
+    x, _ = make_clustered(12, 1100, 8, 16, n_clusters=32, sigma=0.35)
+    cfg = dict(max_degree=12, l_build=24, beam_width=4, metric=JMetric(metric))
+    jidx = JIndex.build(x, JConfig(**cfg), insert_batch_size=256)
+    tidx = GraphIndex.build(x, GraphConfig(**{**cfg, "metric": Metric(metric)}),
+                            insert_batch_size=256, device=CPU)
+    assert tidx.packed is None and tidx.n == jidx.n == 1100
+    np.testing.assert_array_equal(n(tidx.state.adjacency), np.asarray(jidx.state.adjacency))
+    np.testing.assert_array_equal(n(tidx.state.degrees), np.asarray(jidx.state.degrees))
+    assert tidx.last_insert_stats == jidx.last_insert_stats
+    _check_invariants_full(tidx)
+
+
+def _check_invariants_full(idx):
+    adj = n(idx.state.adjacency)[: idx.n]
+    deg = n(idx.state.degrees)[: idx.n]
+    np.testing.assert_array_equal((adj >= 0).sum(1), deg)
+    assert not (adj == np.arange(idx.n)[:, None]).any()
+
+
+@pytest.mark.parametrize("strategy,k", [
+    ("medoid", 1), ("first_vector", 1), ("random_samples", 5),
+    ("latin_hypercube", 6), ("random_vectors", 4),
+])
+def test_start_ids_match_jax(data, jax_index, strategy, k):
+    tidx = graph_index_from_arrays(**jax_index_arrays(jax_index))
+    # deleted slots are skipped by every strategy
+    valid = np.asarray(jax_index.state.valid).copy()
+    valid[[0, 3, 700]] = False
+    jst = jax_index.state._replace(valid=jnp.asarray(valid))
+    tidx.state.valid[[0, 3, 700]] = False
+    want = np.asarray(j_start_ids(jst, N, strategy, k, seed=9))
+    got = n(tpk_state.start_ids(tidx.state, N, strategy, k, seed=9))
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    assert valid[got].all()
+
+
+def test_set_start_strategy_drives_the_walk(jax_index):
+    tidx = graph_index_from_arrays(**jax_index_arrays(jax_index))
+    tidx.set_start_strategy("random_samples", k=3, seed=4)
+    jax_index.set_start_strategy("random_samples", k=3, seed=4)
+    try:
+        np.testing.assert_array_equal(n(tidx._start()), np.asarray(jax_index._start()))
+    finally:
+        jax_index.set_start_strategy("medoid")
+    assert tidx._start().shape == (3,)
+    with pytest.raises(ValueError):
+        tidx.set_start_strategy("nearest_cluster")

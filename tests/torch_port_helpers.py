@@ -17,6 +17,10 @@ import torch
 # thread pool small
 torch.set_num_threads(2)
 
+# the port's entry points run on the CUDA card unless asked otherwise; the
+# parity tests ask for the CPU
+CPU = torch.device("cpu")
+
 PACKED_FIELDS = ("proj", "pscale", "pbias2", "self_codes", "self_aux", "rows")
 
 
@@ -45,7 +49,8 @@ def jax_index_arrays(idx) -> dict:
     if getattr(idx, "labels", None) is not None:
         labels = {"vocab": dict(idx.labels.vocab), "bits": np.asarray(idx.labels.bits)}
     return dict(config=cfg, graph=graph, packed=packed, n=idx.n,
-                n_deleted=idx.n_deleted, labels=labels)
+                n_deleted=idx.n_deleted, free_slots=list(idx.free_slots),
+                labels=labels, device=CPU)
 
 
 def rand_word_rows(rng, n_nodes: int, nwr: int) -> np.ndarray:
