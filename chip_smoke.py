@@ -53,7 +53,26 @@ Phases, each printing one line:
    a replace of 2% (scan + fill) and consolidate, a full-precision
    checkpoint (L=90) after each; fails below recall@10 0.95 at any
    checkpoint, or if a live row still refers to a deleted id after a scan
-   delete or a consolidate.
+   delete or a consolidate;
+11. quantized traversal on the main path's index (after phase 7): attach
+   SQ, PQ 8-bit (32 x 256), MinMax, spherical 4-bit, then 4-bit PQ (64 x
+   16); every mode and the full route at L = 32, 64, 100 (W=4, rerank of
+   all L); fails below the JAX tests' bars at each mode's best L (0.90;
+   8-bit PQ the full route's recall less 0.08; 4-bit PQ 0.88);
+12. search modes on the same index: range search (full: resume route;
+   packed: restart route) against a brute-force scan, PagedSearch (5
+   pages of 10, full and packed), search_diverse (both enforce routes,
+   packed) and determinant_rerank (packed); fails on an id outside the
+   radius, coverage < 0.9, overlapping or unsorted pages, a broken
+   quota, an invalid selection, or a packed route without K1;
+13. the 100k x 768 inner-product shape of `scripts/bench_wiki100k.py`:
+   full build, attach_packed(dp=128) / attach_sq / attach_pq(192 chunks),
+   k=100 search at L=200, W=8, router_starts=16, max_hops=12 in packed,
+   sq and pq mode; fails below recall@100 0.99 for packed or sq.
+
+Phase 4 also trains every quantizer on the CPU copy of its small index,
+carries the trained state to the card and holds each quantized mode's
+ids card against CPU (>= 99% identical).
 
 Phase 6 also traces one filtered walk call with torch.profiler and splits
 its device time between K1, the matched-list merges and the rest; phase 9
@@ -97,6 +116,24 @@ STREAM_MIN_RECALL = 0.92
 R05_TRAJECTORY = [0.948, 0.9398, 0.9345, 0.9334, 0.9336, 0.9397, 0.9406, 0.9427,
                   0.9441, 0.9442]
 RUNBOOK_N = 100_000
+# quantized traversal on the 1M index: L sweep (W=4, rerank of all L);
+# bars of the JAX package's own tests (`tests/test_pq_search.py:30, 60,
+# 158, 261`, `tests/test_modes.py:181`)
+QUANT_L = (32, 64, 100)
+QUANT_MIN_RECALL = 0.90
+PQ8_SLACK = 0.08
+PQ4_MIN_RECALL = 0.88
+# the search modes on the 1M index
+RANGE_NQ = 256
+PAGED_NQ = 64
+PAGES, PAGE_K = 5, 10
+DET_NQ = 1024
+# the 100k x 768 inner-product shape (`scripts/bench_wiki100k.py`)
+WIKI_N, WIKI_NQ, WIKI_D = 100_000, 4096, 768
+WIKI_SEARCH = dict(l_search=200, beam_width=8, router_starts=16, max_hops=12)
+WIKI_MIN_RECALL100 = 0.99
+# `BENCH_WIKI100K_r04.json` at mh12 / W8 / rs16: (recall@10, recall@100)
+R04_WIKI = {"packed": (0.9999, 0.9993), "sq": (0.9999, 0.9993), "pq": None}
 # the H100 SXM's published peaks (NVIDIA data sheet): HBM bytes and dense
 # int8 operations per millisecond
 HBM_BYTES_PER_MS = 3.35e12 / 1e3
@@ -228,13 +265,11 @@ def check_small_input(torch, device) -> float:
     float32 query projection may round an int8 query code differently on
     the two devices, and near-tied float distances may swap).  Returns the
     smallest share."""
-    import dataclasses
-
     import numpy as np
 
     from diskann_tpu_torch import GraphConfig, GraphIndex
     from diskann_tpu_torch.bench.harness import make_clustered
-    from diskann_tpu_torch.convert import graph_index_from_arrays
+    from diskann_tpu_torch.convert import graph_index_from_arrays, index_arrays
 
     n = 20_000
     x, q = make_clustered(1, n, 512, D, n_clusters=256, sigma=0.35)
@@ -245,18 +280,8 @@ def check_small_input(torch, device) -> float:
     card.attach_packed(dp=128)
     cats = bench_cats(n)
     card.attach_labels([[f"cat{c}"] for c in cats])
-    pk = card.packed
-    host = graph_index_from_arrays(
-        config=dataclasses.asdict(cfg),
-        graph={f: getattr(card.state, f).cpu().numpy() for f in card.state._fields},
-        packed={**{f: getattr(pk, f).cpu().numpy() for f in
-                   ("proj", "pscale", "pbias2", "self_codes", "self_aux", "rows")},
-                "r_pack": pk.r_pack},
-        n=card.n, n_deleted=card.n_deleted, free_slots=card.free_slots,
-        labels={"vocab": card.labels.vocab,
-                "bits": card.labels.bits.cpu().numpy().view(np.uint32)},
-        device="cpu", insert_batch_size=card.insert_batch_size,
-    )
+    host = graph_index_from_arrays(**index_arrays(card), device="cpu",
+                                   insert_batch_size=card.insert_batch_size)
     walk = dict(FILTER_KW, query_dtype=np.float16)
     cases = [
         ("packed search", None, dict(l_search=24, beam_width=4, mode="packed",
@@ -284,7 +309,43 @@ def check_small_input(torch, device) -> float:
         if share < 0.99:
             raise RuntimeError(f"card and CPU disagree on {name}: {share:.4f} identical ids")
         worst = min(worst, share)
+    worst = min(worst, check_small_quant(card, host, q))
     return min(worst, check_small_delete(card, host, q, n))
+
+
+def check_small_quant(card, host, q) -> float:
+    """The quantized modes on the small index: each quantizer is trained on
+    the CPU copy (SQ, MinMax, spherical 4-bit, PQ 8-bit 16 x 256, then PQ
+    4-bit 32 x 16), carried to the card by `convert.py` with its trained
+    state (the two devices' generators draw different streams), and every
+    quant mode searched on both at L=64, W=4: >= 99% identical (query,
+    rank) ids.  Returns the smallest share."""
+    from diskann_tpu_torch.convert import graph_index_from_arrays, index_arrays
+
+    host.attach_sq()
+    host.attach_minmax()
+    host.attach_spherical(n_bits=4)
+    worst = 1.0
+    for label, pq_kw, modes in (("pq8", dict(n_chunks=16, n_centers=256),
+                                 ("pq", "sq", "minmax", "spherical")),
+                                ("pq4", dict(n_chunks=32, n_centers=16), ("pq",))):
+        host.attach_pq(**pq_kw)
+        carried = graph_index_from_arrays(**index_arrays(host), device=card.device,
+                                          insert_batch_size=card.insert_batch_size)
+        for mode in modes:
+            kw = dict(l_search=64, beam_width=4, mode=mode)
+            _, ids_card, _ = carried.search(q, K, **kw)
+            _, ids_host, _ = host.search(q, K, **kw)
+            share = float((ids_card == ids_host).mean())
+            name = label if mode == "pq" else mode
+            log(f"[small] n={host.n} {name} search (state trained on the CPU, carried "
+                f"to the card) on the card vs the CPU: identical ids {share:.4f} "
+                f"(need >= 0.99)")
+            if share < 0.99:
+                raise RuntimeError(f"card and CPU disagree on mode {name}: {share:.4f}")
+            worst = min(worst, share)
+        del carried
+    return worst
 
 
 def check_small_delete(card, host, q, n: int) -> float:
@@ -830,6 +891,333 @@ def run_runbook(x, q, device, *, n: int = RUNBOOK_N,
     return {"n": n, "stages": rows}
 
 
+def take_launches(k1, k2, phase: str | None = None) -> dict:
+    """Both kernels' launch counts since the last call (logged under
+    ``phase`` when given); the counts restart at 0."""
+    out = {"fatrow_expand": k1.launches, "block_patch": k2.launches}
+    k1.launches = k2.launches = 0
+    if phase:
+        log(f"[{phase}] kernel launches: {out}")
+    return out
+
+
+def _timed(torch, device, fn):
+    """(result of fn(), wall seconds) with the device drained on both ends."""
+    sync(torch, device)
+    t0 = time.time()
+    out = fn()
+    sync(torch, device)
+    return out, time.time() - t0
+
+
+def run_quant(idx, qd, gt, *, min_recall: float = QUANT_MIN_RECALL,
+              pq4_min_recall: float = PQ4_MIN_RECALL) -> dict:
+    """Quantized traversal on the main path's index: attach SQ, PQ 8-bit
+    (32 x 256), MinMax and spherical 4-bit, then 4-bit PQ (64 x 16) in
+    place of the first PQ; search the queries in every mode at L in
+    QUANT_L (W=4, router on, full-precision rerank of all L) beside the
+    full route at the same L.  Raises unless, at each mode's best L, SQ,
+    MinMax and spherical reach min_recall, 8-bit PQ the full route's
+    recall less PQ8_SLACK and 4-bit PQ pq4_min_recall."""
+    import numpy as np
+    import torch
+
+    from diskann_tpu_torch.bench.recall import knn_recall
+
+    device = qd.device
+    nq = qd.shape[0]
+    out = {"attach_s": {}, "rows": []}
+
+    def attach(name, fn):
+        _, dt = _timed(torch, device, fn)
+        out["attach_s"][name] = dt
+        log(f"[quant] attach {name}: {dt:.2f}s")
+
+    def sweep(label, mode):
+        idx.search(qd[:1024], K, l_search=QUANT_L[0], beam_width=4, mode=mode)  # warm-up
+        for l in QUANT_L:
+            (dists, ids, st), dt = _timed(torch, device, lambda: idx.search(
+                qd, K, l_search=l, beam_width=4, mode=mode))
+            if ids.shape != (nq, K) or not np.isfinite(dists[ids >= 0]).all():
+                raise RuntimeError(f"[quant] {label} L={l}: malformed result")
+            row = {"mode": label, "l": l, "recall": knn_recall(ids, gt, K),
+                   "qps": nq / dt, "mean_hops": float(st.hops.mean()),
+                   "mean_cmps": float(st.cmps.mean())}
+            out["rows"].append(row)
+            log(f"[quant] {label} L={l} W=4 rerank_l={l}: recall@{K}={row['recall']:.4f} "
+                f"qps={row['qps']:.0f} mean_hops={row['mean_hops']:.2f} "
+                f"mean_cmps={row['mean_cmps']:.0f}")
+
+    attach("sq", idx.attach_sq)
+    attach("pq8", lambda: idx.attach_pq(n_chunks=32, n_centers=256))
+    attach("minmax", idx.attach_minmax)
+    attach("spherical", lambda: idx.attach_spherical(n_bits=4))
+    sweep("full", "full")
+    for mode in ("sq", "pq", "minmax", "spherical"):
+        sweep("pq8" if mode == "pq" else mode, mode)
+    attach("pq4", lambda: idx.attach_pq(n_chunks=64, n_centers=16))
+    sweep("pq4", "pq")
+    out["profile"] = {m: profile_quant_walk(idx, qd, m) for m in ("full", "sq", "pq")}
+
+    def best(label):
+        return max((r for r in out["rows"] if r["mode"] == label), key=lambda r: r["recall"])
+
+    full = {r["l"]: r["recall"] for r in out["rows"] if r["mode"] == "full"}
+    bars = {"sq": min_recall, "minmax": min_recall, "spherical": min_recall,
+            "pq4": pq4_min_recall}
+    bars["pq8"] = full[best("pq8")["l"]] - PQ8_SLACK
+    out["best"] = {}
+    for label, bar in bars.items():
+        b = best(label)
+        out["best"][label] = {"l": b["l"], "recall": b["recall"], "bar": bar}
+        log(f"[quant] {label}: best recall@{K} {b['recall']:.4f} at L={b['l']} "
+            f"(need >= {bar:.4f})")
+        if b["recall"] < bar:
+            raise RuntimeError(f"[quant] {label}: recall {b['recall']:.4f} < {bar:.4f}")
+    return out
+
+
+def profile_quant_walk(idx, qd, mode: str, l: int = QUANT_L[-1]) -> dict:
+    """torch.profiler over one search call of ``mode`` at L=l, W=4: the
+    device time of the best-list and ring membership tests
+    (`ops/topk.isin_rows`), of the payload sorts of the hop loop
+    (`sort_with`, the list merges and the rerank) and of the rest (the
+    scorer's gathers and products among it), and the device's idle share."""
+    from diskann_tpu_torch.graph import search as search_mod
+
+    p = profile_call(lambda: idx.search(qd, K, l_search=l, beam_width=4, mode=mode),
+                     qd.device, [("membership", search_mod, "isin_rows"),
+                                 ("sorts", search_mod, "sort_with")])
+    out = {"wall_ms": p["wall_ms"], "device_ms": p["device_ms"],
+           "idle_share": p["idle_share"], **p["ranges"]}
+    out["rest_ms"] = p["device_ms"] - sum(p["ranges"].values())
+    log(f"[quant] profile {mode} L={l} ({qd.shape[0]} queries): wall {out['wall_ms']:.1f} ms, "
+        f"device busy {out['device_ms']:.2f} ms (idle share {out['idle_share']:.3f}): "
+        f"membership {out['membership']:.2f} ms, sorts {out['sorts']:.2f} ms, rest "
+        f"{out['rest_ms']:.2f} ms")
+    out["top"] = log_top_kernels("quant", p["kernels"], n=6)
+    return out
+
+
+def run_modes(idx, qd, k1, *, min_cover: float = 0.9) -> dict:
+    """The search modes of `graph/modes.py` on the main path's index, each
+    on the packed walk (K1 must launch) and the full route where asked:
+    range search on RANGE_NQ queries (full: the resume route; packed: the
+    restart route) at the median exact 20th-neighbour distance, against a
+    brute-force scan (every id inside the radius, coverage >= min_cover);
+    `PagedSearch`, PAGES pages of PAGE_K for PAGED_NQ queries (disjoint,
+    distance-sorted pages; in full mode pages 1-2 equal one search(k=20)
+    at the same L); `search_diverse` with the zipf categories of the
+    filtered phase, one per category, both enforce routes (quota held, no
+    repeated id; recall against the exact diverse top-10 of each query's
+    exact top-1000); `determinant_rerank` on DET_NQ queries (k distinct
+    ids from each query's top-L).  Raises on a failed gate."""
+    import numpy as np
+    import torch
+
+    from diskann_tpu_torch.graph import modes
+    from diskann_tpu_torch.ops.distance import distance_to_set
+
+    device = qd.device
+    n = idx.n
+    out = {"k1_launches": {}}
+    q = qd[:RANGE_NQ]
+    dm = distance_to_set(q, idx.state.vectors[:n], idx.metric,
+                         x_sq_norms=idx.state.sq_norms[:n])       # [RANGE_NQ, n]
+    top_d, top_i = torch.topk(dm, 1000, dim=1, largest=False, sorted=True)
+    radius = float(top_d[:, 19].median())
+    inside = dm <= radius
+    want = [set(torch.nonzero(row).squeeze(1).tolist()) for row in inside]
+    dm_h = dm.cpu().numpy()
+    del dm, inside
+
+    def launches(name, fn):
+        before = k1.launches
+        res, dt = _timed(torch, device, fn)
+        out["k1_launches"][name] = k1.launches - before
+        return res, dt
+
+    # ---- range search ----
+    out["range"] = {"radius": radius, "in_radius_mean": float(np.mean([len(w) for w in want]))}
+    for mode, route in (("full", "resume"), ("packed", "restart")):
+        (res, complete), dt = launches(f"range_{mode}", lambda: modes.range_search(
+            idx, q, radius, mode=mode, return_complete=True))
+        hit = tot = 0
+        for i, got in enumerate(res):
+            if len(got) and (dm_h[i, got] > radius * (1 + 1e-4)).any():
+                raise RuntimeError(f"[modes] range {mode}: an id outside the radius")
+            if len(set(got.tolist())) != len(got):
+                raise RuntimeError(f"[modes] range {mode}: a repeated id")
+            hit += len(set(got.tolist()) & want[i])
+            tot += len(want[i])
+        cover = hit / max(tot, 1)
+        out["range"][mode] = {"route": route, "coverage": cover, "s": dt,
+                              "complete": float(complete.mean()),
+                              "returned_mean": float(np.mean([len(r) for r in res]))}
+        log(f"[modes] range_search {mode} ({route} route) {RANGE_NQ} queries, radius "
+            f"{radius:.3f} (mean {out['range']['in_radius_mean']:.1f} exact ids inside): "
+            f"coverage {cover:.4f} (need >= {min_cover}), complete "
+            f"{complete.mean():.3f}, {dt:.2f}s, K1 launches "
+            f"{out['k1_launches'][f'range_{mode}']}")
+        if cover < min_cover:
+            raise RuntimeError(f"[modes] range {mode}: coverage {cover:.4f} < {min_cover}")
+
+    # ---- paged search ----
+    l_pg = max(16, idx.config.l_build)
+    _, ids_s, _ = idx.search(qd[:PAGED_NQ], 2 * PAGE_K, l_search=l_pg, mode="full")
+    out["paged"] = {}
+    for mode in ("full", "packed"):
+        def pages():
+            rows = []
+            for i in range(PAGED_NQ):
+                pager = modes.PagedSearch(idx, qd[i], l_search=l_pg, mode=mode)
+                rows.append([pager.next_page(PAGE_K) for _ in range(PAGES)])
+            return rows
+        rows, dt = launches(f"paged_{mode}", pages)
+        hit, same12 = 0, 0
+        for i, pg in enumerate(rows):
+            ids = np.concatenate([p[1] for p in pg])
+            if len(set(ids.tolist())) != len(ids):
+                raise RuntimeError(f"[modes] paged {mode}: pages overlap (query {i})")
+            if any((np.diff(p[0]) < 0).any() for p in pg):
+                raise RuntimeError(f"[modes] paged {mode}: a page is not distance-sorted")
+            hit += len(set(ids.tolist()) & set(top_i[i, :PAGES * PAGE_K].tolist()))
+            same12 += list(np.concatenate([pg[0][1], pg[1][1]])) == list(ids_s[i])
+        rec = hit / (PAGED_NQ * PAGES * PAGE_K)
+        out["paged"][mode] = {"recall_union": rec, "pages_1_2_equal_search": same12, "s": dt}
+        log(f"[modes] PagedSearch {mode} {PAGED_NQ} queries x {PAGES} pages of {PAGE_K} "
+            f"(L={l_pg}): disjoint, sorted; recall@{PAGES * PAGE_K} of the union "
+            f"{rec:.4f}; pages 1-2 equal search(k={2 * PAGE_K}) on {same12}/{PAGED_NQ} "
+            f"queries; "
+            f"{dt:.2f}s, K1 launches {out['k1_launches'][f'paged_{mode}']}")
+        if mode == "full" and same12 != PAGED_NQ:
+            raise RuntimeError(f"[modes] paged full: pages 1-2 differ from search(k=20) "
+                               f"on {PAGED_NQ - same12} queries")
+
+    # ---- diverse search ----
+    cats = bench_cats(n).astype(np.int32)
+    cats_d = torch.as_tensor(cats, device=device)
+    _, exact = modes.diverse_topk_device(top_d, top_i.to(torch.int32), cats_d, K, 1)
+    exact = exact.cpu().numpy()
+    out["diverse"] = {}
+    for enforce in ("post", "traversal"):
+        (d, ids, st), dt = launches(f"diverse_{enforce}", lambda: modes.search_diverse(
+            idx, q, cats, k=K, max_per_attribute=1, mode="packed", enforce=enforce))
+        for row in ids:
+            got = row[row >= 0]
+            if len(set(got.tolist())) != len(got) or len(set(cats[got].tolist())) != len(got):
+                raise RuntimeError(f"[modes] diverse {enforce}: quota broken or id repeated")
+        rec = float(np.mean([len(set(a[a >= 0].tolist()) & set(b.tolist())) / K
+                             for a, b in zip(ids, exact)]))
+        out["diverse"][enforce] = {"recall": rec, "s": dt, "full_rows": float((ids >= 0).all(1).mean()),
+                                   "mean_hops": float(st.hops.mean())}
+        log(f"[modes] search_diverse packed enforce={enforce} {RANGE_NQ} queries, one per "
+            f"category: quota held, no repeats; recall against the exact diverse top-{K} "
+            f"{rec:.4f}; rows with {K} results {out['diverse'][enforce]['full_rows']:.3f}; "
+            f"{dt:.2f}s, K1 launches {out['k1_launches'][f'diverse_{enforce}']}")
+
+    # ---- determinant rerank ----
+    qdet = qd[:DET_NQ]
+    (d, ids, st), dt = launches("determinant", lambda: modes.determinant_rerank(
+        idx, qdet, k=K, mode="packed"))
+    l_det = max(4 * K, idx.config.l_build)
+    _, top, _ = idx.search(qdet, l_det, l_search=l_det, mode="packed")
+    for i, row in enumerate(ids):
+        if (row < 0).any() or len(set(row.tolist())) != K or not set(row.tolist()) <= set(top[i].tolist()):
+            raise RuntimeError(f"[modes] determinant_rerank: bad selection on query {i}")
+    out["determinant"] = {"s": dt, "l": l_det}
+    log(f"[modes] determinant_rerank packed {DET_NQ} queries, k={K} of L={l_det}: {K} "
+        f"distinct ids from each top-L; {dt:.2f}s, K1 launches "
+        f"{out['k1_launches']['determinant']}")
+    for name, c in out["k1_launches"].items():
+        if ("packed" in name or "diverse" in name or name == "determinant") and c < 1:
+            raise RuntimeError(f"[modes] {name}: K1 never launched on a packed route")
+    return out
+
+
+def wiki_data(n: int = WIKI_N, nq: int = WIKI_NQ, seed: int = 42):
+    """`scripts/bench_wiki100k.py`'s embeddings, drawn with numpy: 1024
+    clusters in 64 latent dimensions (noise 0.35), a random lift to 768
+    (noise 0.02), unit norm."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    dlat, nc = 64, 1024
+    centers = rng.standard_normal((nc, dlat), dtype=np.float32)
+    lift = rng.standard_normal((dlat, WIKI_D), dtype=np.float32) / np.float32(np.sqrt(dlat))
+
+    def emb(m):
+        z = centers[rng.integers(0, nc, m)] + 0.35 * rng.standard_normal((m, dlat), dtype=np.float32)
+        e = z @ lift + 0.02 * rng.standard_normal((m, WIKI_D), dtype=np.float32)
+        return e / np.linalg.norm(e, axis=1, keepdims=True)
+
+    return emb(n), emb(nq)
+
+
+def run_wiki(device, k1, *, n: int = WIKI_N, nq: int = WIKI_NQ,
+             min_recall100: float = WIKI_MIN_RECALL100) -> dict:
+    """The 100k x 768 inner-product shape: exact top-100 by `FlatIndex`,
+    the full build (R=60, L=80, alpha=1.2, W=4, build_max_hops=12,
+    occlusion cap 256, batch 8192), `attach_packed(dp=128)`, `attach_sq()`
+    and `attach_pq(n_chunks=192)`, then k=100 searches at L=200, W=8,
+    router_starts=16, max_hops=12, float16 queries for packed, sq and pq.
+    Raises unless sq and packed reach recall@100 >= min_recall100."""
+    import numpy as np
+    import torch
+
+    from diskann_tpu_torch import FlatIndex, GraphConfig, GraphIndex, Metric
+    from diskann_tpu_torch.bench.recall import knn_recall
+
+    out = {"n": n, "nq": nq, "rows": []}
+    (x, q), dt = _timed(torch, device, lambda: wiki_data(n, nq))
+    log(f"[wiki] data {n} x {WIKI_D} unit vectors, {nq} queries: {dt:.1f}s")
+    xd, qd = torch.from_numpy(x).to(device), torch.from_numpy(q).to(device)
+    del x
+    (_, gt), dt = _timed(torch, device, lambda: FlatIndex(xd, Metric.InnerProduct).search(qd, 100))
+    log(f"[wiki] exact inner-product top-100: {dt:.1f}s")
+    cfg = GraphConfig(max_degree=60, l_build=80, alpha=1.2, beam_width=4,
+                      metric=Metric.InnerProduct, build_max_hops=12, max_occlusion_size=256)
+    idx, dt = _timed(torch, device, lambda: GraphIndex.build(
+        xd, cfg, insert_batch_size=8192, search_batch_size=2048, build_mode="full"))
+    out["build_s"] = dt
+    log(f"[wiki] full build (R=60, L=80, alpha=1.2, W=4, build_max_hops=12): {dt:.1f}s "
+        f"({n / dt:.0f} points/s)")
+    del xd
+    out["attach_s"] = {}
+    for name, fn in (("packed", lambda: idx.attach_packed(dp=128)), ("sq", idx.attach_sq),
+                     ("pq", lambda: idx.attach_pq(n_chunks=192))):
+        _, out["attach_s"][name] = _timed(torch, device, fn)
+        log(f"[wiki] attach {name}: {out['attach_s'][name]:.2f}s")
+    out["k1_launches"] = 0
+    for mode in ("packed", "sq", "pq"):
+        kw = dict(WIKI_SEARCH, mode=mode, query_dtype=np.float16)
+        idx.search(qd[:256], 100, **kw)                                    # warm-up
+        before = k1.launches
+        (dists, ids, st), dt = _timed(torch, device, lambda: idx.search(qd, 100, **kw))
+        if mode == "packed":
+            out["k1_launches"] = k1.launches - before
+        if ids.shape != (nq, 100) or not np.isfinite(dists[ids >= 0]).all():
+            raise RuntimeError(f"[wiki] {mode}: malformed result")
+        row = {"mode": mode, "recall10": knn_recall(ids[:, :10], gt[:, :10], 10),
+               "recall100": knn_recall(ids, gt, 100), "qps": nq / dt,
+               "mean_hops": float(st.hops.mean())}
+        out["rows"].append(row)
+        r04 = R04_WIKI[mode]
+        r04_txt = (f"r04 recall@10 {r04[0]} recall@100 {r04[1]}" if r04
+                   else "r04 recorded no row")
+        log(f"[wiki] {mode} k=100 L=200 W=8 router_starts=16 max_hops=12 float16: "
+            f"recall@10={row['recall10']:.4f} recall@100={row['recall100']:.4f} "
+            f"qps={row['qps']:.0f} mean_hops={row['mean_hops']:.2f} ({r04_txt})")
+        if mode in ("packed", "sq") and row["recall100"] < min_recall100:
+            raise RuntimeError(f"[wiki] {mode}: recall@100 {row['recall100']:.4f} "
+                               f"< {min_recall100}")
+    if out["k1_launches"] < 1:
+        raise RuntimeError("[wiki] K1 never launched on the packed search")
+    if device.type == "cuda":
+        out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    return out
+
+
 def time_ms(torch, fn, reps: int = 20) -> float:
     """Mean milliseconds per call on the card, after warm-up."""
     for _ in range(3):
@@ -1044,6 +1432,15 @@ def main(argv=None) -> int:
         raise RuntimeError("K1 never launched on the filtered path")
     profiled = profile_filtered_walk(idx, qd)
     full = run_full_route(idx, qd, gt, filt_gt["cat0"])
+
+    # the quantized walks launch no kernel (their scorers are torch ops);
+    # every packed route of the modes phase runs K1
+    phase_launches = {}
+    take_launches(k1, k2)
+    quant = run_quant(idx, qd, gt)
+    phase_launches["quant"] = take_launches(k1, k2, "quant")
+    modes_out = run_modes(idx, qd, k1)
+    phase_launches["modes"] = take_launches(k1, k2, "modes")
     del idx, qd
     torch.cuda.empty_cache()
 
@@ -1066,6 +1463,11 @@ def main(argv=None) -> int:
     log(f"[runbook] kernel launches (full precision, no packed layout): "
         f"{runbook['launches']}")
     del x, q
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    take_launches(k1, k2)
+    wiki = run_wiki(device, k1)
+    phase_launches["wiki"] = take_launches(k1, k2, "wiki")
 
     k1t, k2t = times["k1_rp84_dp128"], times["k2_int32"]
     kernels = [
@@ -1073,6 +1475,7 @@ def main(argv=None) -> int:
          "replaces": K1_REPLACES, "launches": launches["fatrow_expand"],
          "filtered_launches": filt_launches["fatrow_expand"],
          "stream_launches": stream_launches["fatrow_expand"],
+         **{f"{p}_launches": phase_launches[p]["fatrow_expand"] for p in phase_launches},
          "max_abs_err": max(k1_err, times["k1_err"]),
          "ms": k1t["ms"], "plain_ms": k1t["plain_ms"],
          "bound_ms": k1t["bound_ms"], "bound_by": k1t["bound_by"],
@@ -1085,6 +1488,7 @@ def main(argv=None) -> int:
          "replaces": K2_REPLACES, "launches": launches["block_patch"],
          "filtered_launches": filt_launches["block_patch"],
          "stream_launches": stream_launches["block_patch"],
+         **{f"{p}_launches": phase_launches[p]["block_patch"] for p in phase_launches},
          "max_abs_err": max(k2_err, times["k2_err"]),
          "ms": k2t["ms"], "plain_ms": k2t["plain_ms"],
          "bound_ms": k2t["bound_ms"], "bound_by": k2t["bound_by"],
@@ -1100,6 +1504,9 @@ def main(argv=None) -> int:
     summary["filtered_profile"] = profiled
     summary["stream"] = stream
     summary["runbook"] = runbook
+    summary["quant"] = quant
+    summary["modes"] = modes_out
+    summary["wiki"] = wiki
     log("[summary] " + json.dumps(summary))
     print(json.dumps({"kernels": kernels}))
     print(smi)

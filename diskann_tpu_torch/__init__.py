@@ -7,11 +7,14 @@ package wrote in Pallas for the TPU are hand-written CUDA for Hopper
 same paths as their JAX counterparts.
 
     bench/      synthetic clustered data, recall, the streaming runbook
-    graph/      Vamana: full and packed build, search, prune, packed
-                layout, in-place delete and consolidation
+    graph/      Vamana: full and packed build, search (full, packed and
+                quantized), prune, packed layout, in-place delete and
+                consolidation, range / paged / diverse search
+    quant/      PQ, scalar, MinMax, spherical and binary quantizers,
+                k-means, packed bit codes, Hadamard transforms
     flat/       brute-force index (the groundtruth)
     ops/        distances, top-k, the CUDA kernels and their plain versions
-    convert.py  carry a JAX-built index across
+    convert.py  carry an index across (from JAX, or between devices)
     devices.py  the default device (the CUDA card)
 
 Entry points put their tensors on the CUDA card unless given another

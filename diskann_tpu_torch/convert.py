@@ -3,11 +3,19 @@
 
 The layouts are the same in both packages (int32 ids with -1 padding, the
 ``[(cap+1)*nwr, 128]`` int32 fat-row table with its dump row, float32
-vectors), so the arrays are copied as they are.  Pulling the arrays out of
-a JAX index is the caller's business: this package never imports JAX.
+vectors, the quantized code tables), so the arrays are copied as they are;
+uint32 words (labels, spherical codes) are carried as int32 with the same
+bits.  Pulling the arrays out of a JAX index is the caller's business:
+this package never imports JAX.
+
+Quantized attachments are carried with their trained state (PQ pivots, SQ
+ranges, the spherical rotation), so the port walks the same codes without
+training again: the two packages' random streams differ.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -19,6 +27,10 @@ from diskann_tpu_torch.graph.index import GraphIndex
 from diskann_tpu_torch.graph.packed import PackedState, n_wrows
 from diskann_tpu_torch.graph.state import GraphArrays
 from diskann_tpu_torch.ops.distance import Metric
+from diskann_tpu_torch.quant.minmax import MinMaxQuantizer
+from diskann_tpu_torch.quant.pq import PQ
+from diskann_tpu_torch.quant.scalar import ScalarQuantizer
+from diskann_tpu_torch.quant.spherical import SphericalQuantizer
 
 _GRAPH_DTYPES = {
     "vectors": torch.float32,
@@ -36,6 +48,25 @@ _PACKED_DTYPES = {
     "self_aux": torch.float32,
     "rows": torch.int32,
 }
+# the per-row code tables of each quantized attachment, and their dtypes
+_ATTACH_TABLES = {
+    "pq": {"codes": ("pq_codes", torch.uint8)},
+    "sq": {"codes": ("sq_codes", torch.int8), "aux": ("sq_aux", torch.float32)},
+    "minmax": {"codes": ("mm_codes", torch.int8), "lo": ("mm_lo", torch.float32),
+               "step": ("mm_step", torch.float32), "aux": ("mm_aux", torch.float32)},
+    "spherical": {"words": ("sph_words", torch.int32),
+                  "norms": ("sph_norms", torch.float32),
+                  "cscale": ("sph_cscale", torch.float32)},
+}
+
+
+def _tensor(a, dtype, device) -> torch.Tensor:
+    """A copy of numpy array ``a`` as ``dtype`` on ``device``; uint32 words
+    keep their bits as int32."""
+    a = np.array(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.as_tensor(a, device=device).to(dtype)
 
 
 def graph_index_from_arrays(
@@ -47,6 +78,10 @@ def graph_index_from_arrays(
     n_deleted: int = 0,
     free_slots=(),
     labels: dict | None = None,
+    pq: dict | None = None,
+    sq: dict | None = None,
+    minmax: dict | None = None,
+    spherical: dict | None = None,
     device=None,
     **index_kwargs,
 ) -> GraphIndex:
@@ -58,9 +93,14 @@ def graph_index_from_arrays(
     n, n_deleted: the index's counters; free_slots: its freelist, in
     order (the last entry is reused first); labels: ``{"vocab": dict, "bits":
     [cap, n_words] uint32 array}`` of the reference's `LabelSet`, or None
-    (the words are carried as int32 with the same bits).  index_kwargs go
-    to `GraphIndex` (batch sizes, backedge cap).  The index goes on
-    ``device``, by default the CUDA card."""
+    (the words are carried as int32 with the same bits).  The quantized
+    attachments, each None or a dict of numpy arrays: pq ``{"pivots",
+    "dim", "codes"}``; sq ``{"scale", "bias", "n_bits", "codes"}`` (the
+    centred int8 codes), ``"bias2"``, ``"aux"``; minmax ``{"codes",
+    "lo", "step", "aux"}``; spherical ``{"rotation", "n_bits", "words",
+    "norms", "cscale"}``; every code table has capacity rows.
+    index_kwargs go to `GraphIndex` (batch sizes, backedge cap).  The
+    index goes on ``device``, by default the CUDA card."""
     device = default_device(device)
     cfg = dict(config)
     cfg["metric"] = Metric(cfg["metric"])
@@ -96,7 +136,59 @@ def graph_index_from_arrays(
         ls = LabelSet(cap, labels["vocab"], bits.shape[1], device=device)
         ls.bits = torch.from_numpy(bits.view(np.int32).copy()).to(device)
         idx.labels = ls
+    attach = {"pq": pq, "sq": sq, "minmax": minmax, "spherical": spherical}
+    for name, arrays in attach.items():
+        if arrays is None:
+            continue
+        for key, (attr, dt) in _ATTACH_TABLES[name].items():
+            table = _tensor(arrays[key], dt, device)
+            if table.shape[0] != cap:
+                raise ValueError(f"{name} {key} has {table.shape[0]} rows, "
+                                 f"not the capacity {cap}")
+            setattr(idx, attr, table)
+    f32 = lambda a: _tensor(a, torch.float32, device)  # noqa: E731
+    if pq is not None:
+        idx.pq = PQ(pivots=f32(pq["pivots"]), dim=int(pq["dim"]))
+    if sq is not None:
+        idx.sq = ScalarQuantizer(scale=f32(sq["scale"]), bias=f32(sq["bias"]),
+                                 n_bits=int(sq["n_bits"]))
+        idx.sq_bias2 = f32(sq["bias2"])
+    if minmax is not None:
+        idx.mm = MinMaxQuantizer()
+    if spherical is not None:
+        idx.sph = SphericalQuantizer(rotation=f32(spherical["rotation"]),
+                                     n_bits=int(spherical["n_bits"]))
     idx.n = int(n)
     idx.n_deleted = int(n_deleted)
     idx.free_slots = [int(i) for i in free_slots]
     return idx
+
+
+def index_arrays(idx: GraphIndex) -> dict:
+    """The keyword arguments of `graph_index_from_arrays` that rebuild port
+    index ``idx`` (on another device, say), every array copied to numpy."""
+    np_ = lambda a: a.cpu().numpy()  # noqa: E731
+    packed = None
+    if idx.packed is not None:
+        packed = {f: np_(getattr(idx.packed, f)) for f in _PACKED_DTYPES}
+        packed["r_pack"] = idx.packed.r_pack
+    labels = None
+    if idx.labels is not None:
+        labels = {"vocab": dict(idx.labels.vocab),
+                  "bits": np_(idx.labels.bits).view(np.uint32)}
+    attach = {}
+    for name, tables in _ATTACH_TABLES.items():
+        first = getattr(idx, next(iter(tables.values()))[0])
+        if first is not None:
+            attach[name] = {key: np_(getattr(idx, attr)) for key, (attr, _) in tables.items()}
+    if idx.pq is not None:
+        attach["pq"].update(pivots=np_(idx.pq.pivots), dim=idx.pq.dim)
+    if idx.sq is not None:
+        attach["sq"].update(scale=np_(idx.sq.scale), bias=np_(idx.sq.bias),
+                            n_bits=idx.sq.n_bits, bias2=np_(idx.sq_bias2))
+    if idx.sph is not None:
+        attach["spherical"].update(rotation=np_(idx.sph.rotation), n_bits=int(idx.sph.n_bits))
+    return dict(config=dataclasses.asdict(idx.config),
+                graph={f: np_(getattr(idx.state, f)) for f in idx.state._fields},
+                packed=packed, n=idx.n, n_deleted=idx.n_deleted,
+                free_slots=list(idx.free_slots), labels=labels, **attach)

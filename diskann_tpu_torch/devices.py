@@ -21,3 +21,12 @@ def default_device(device=None) -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return torch.device("cuda")
+
+
+def generator(seed: int = 0, gen: torch.Generator | None = None,
+              device=None) -> torch.Generator:
+    """``gen`` if given, else a new generator on ``device`` seeded with
+    ``seed``.  Every random draw of the port goes through one."""
+    if gen is not None:
+        return gen
+    return torch.Generator(device=torch.device(device or "cpu")).manual_seed(seed)

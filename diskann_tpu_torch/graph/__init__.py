@@ -1,4 +1,5 @@
-"""Vamana graph: build, search, prune, in-place delete and consolidation."""
+"""Vamana graph: build, search, prune, in-place delete and consolidation,
+and the range / paged / diverse search modes (`graph/modes.py`)."""
 
 from diskann_tpu_torch.graph.config import GraphConfig, PruneKind
 from diskann_tpu_torch.graph.index import GraphIndex

@@ -8,13 +8,22 @@ the freelist (last freed, first reused) before fresh ones; streaming
 deletes (`delete`: in-place repair of the in-neighbours by one of four
 discovery methods and two repairs, `graph/delete.py`) and `consolidate`;
 the start-point strategies (`set_start_strategy`); the packed re-attach
-(`attach_packed`); search in modes "full" (full-precision walk) and
-"packed" (router entry points, packed hop loop, full-precision rerank);
-and label-filtered search (`attach_labels`, `search_filtered`: the exact
-posting-list scan, the packed inline-beta walk and the full-precision
-inline walk with AdaptiveL resume or multihop).  Every tensor lives on the
-index's ``device`` (the CUDA card unless the caller names another); the
-host only orchestrates batches, capacity, the freelist and start points.
+(`attach_packed`) and the quantized attachments (`attach_pq`, `attach_sq`,
+`attach_minmax`, `attach_spherical`); search in modes "full"
+(full-precision walk), "packed" (router entry points, packed hop loop,
+full-precision rerank) and "pq" / "sq" / "minmax" / "spherical" (the same
+pipeline over the quantized codes); and label-filtered search
+(`attach_labels`, `search_filtered`: the exact posting-list scan, the
+packed inline-beta walk and the full-precision inline walk with AdaptiveL
+resume or multihop).  Range, paged and diversity-aware search live in
+`graph/modes.py` and reach the index through `_scorer_for_mode`.  Every
+tensor lives on the index's ``device`` (the CUDA card unless the caller
+names another); the host only orchestrates batches, capacity, the freelist
+and start points.
+
+An insert does not encode its vectors into a quantized attachment: the
+code tables only grow (as the reference's, whose service backfills them),
+so new rows score as code 0 until the attachment is made again.
 """
 
 from __future__ import annotations
@@ -32,14 +41,19 @@ from diskann_tpu_torch.graph import state as graph_state
 from diskann_tpu_torch.graph.build import insert_batch
 from diskann_tpu_torch.graph.config import GraphConfig
 from diskann_tpu_torch.graph.scorers import (
-    full_precision_scorer, packed_router_starts, packed_scorer,
-    quantize_queries, smallest_ids,
+    full_precision_scorer, minmax_scorer, packed_router_starts, packed_scorer,
+    pq_scorer, quantize_queries, smallest_ids, spherical_scorer, sq_aux_norms,
+    sq_center_codes, sq_scorer,
 )
 from diskann_tpu_torch.graph.search import (
     beam_search, beam_search_scored, grow_resume_state, search_geometry,
 )
 from diskann_tpu_torch.ops.distance import Metric, distance_to_set, squared_norms
 from diskann_tpu_torch.ops.topk import sort_with
+from diskann_tpu_torch.quant.minmax import MinMaxQuantizer
+from diskann_tpu_torch.quant.pq import train_pq
+from diskann_tpu_torch.quant.scalar import train_scalar
+from diskann_tpu_torch.quant.spherical import train_spherical
 
 
 # fat rows rebuilt per refresh_rows call in attach_packed: bounds the
@@ -56,6 +70,10 @@ _START_STRATEGIES = ("medoid", "first_vector", "random_samples",
 # query wire dtypes of `query_dtype` (the queries are rounded through the
 # dtype, then computed on in float32)
 _QUERY_DTYPES = {"float16": torch.float16, "float32": torch.float32}
+
+# search modes: the full-precision walk, and the walks over a compressed
+# layout (each followed by a full-precision rerank)
+_MODES = ("full", "packed", "pq", "sq", "minmax", "spherical")
 
 
 class SearchStats(NamedTuple):
@@ -182,6 +200,10 @@ class GraphIndex:
 
     #: Router distance math of packed search: "int8" (exact) or "bf16".
     router_compute: str = "int8"
+    #: Cut each hop's candidates to the list width before the merge sort
+    #: in the packed and quantized walks (`beam_search_scored`); exact up
+    #: to equal-distance tie order.
+    merge_trunc: bool = False
 
     def __init__(
         self,
@@ -219,6 +241,11 @@ class GraphIndex:
         self._router_ids: torch.Tensor | None = None
         self._router_rows_cache: tuple | None = None
         self._pred_count_cache: dict = {}
+        # quantized attachments (`attach_*`); code tables have capacity rows
+        self.pq = self.pq_codes = None
+        self.sq = self.sq_codes = self.sq_bias2 = self.sq_aux = None
+        self.mm = self.mm_codes = self.mm_lo = self.mm_step = self.mm_aux = None
+        self.sph = self.sph_words = self.sph_norms = self.sph_cscale = None
 
     @property
     def n_live(self) -> int:
@@ -282,10 +309,23 @@ class GraphIndex:
         self.state = graph_state.grow(self.state, new_cap)
         if self.packed is not None:
             self.packed = packed_mod.grow_packed(self.packed, new_cap)
+        extra = new_cap - cap
         if self.labels is not None:
-            self.labels.bits = torch.nn.functional.pad(
-                self.labels.bits, (0, 0, 0, new_cap - cap))
+            self.labels.bits = torch.nn.functional.pad(self.labels.bits, (0, 0, 0, extra))
             self.labels.capacity = new_cap
+        # the code tables grow with empty rows (an insert encodes nothing)
+        pad2 = lambda a: torch.nn.functional.pad(a, (0, 0, 0, extra))  # noqa: E731
+        pad1 = lambda a, v=0.0: torch.nn.functional.pad(a, (0, extra), value=v)  # noqa: E731
+        if self.pq is not None:
+            self.pq_codes = pad2(self.pq_codes)
+        if self.sq is not None:
+            self.sq_codes, self.sq_aux = pad2(self.sq_codes), pad1(self.sq_aux)
+        if self.sph is not None:
+            self.sph_words = pad2(self.sph_words)
+            self.sph_norms, self.sph_cscale = pad1(self.sph_norms), pad1(self.sph_cscale)
+        if self.mm is not None:
+            self.mm_codes, self.mm_aux = pad2(self.mm_codes), pad1(self.mm_aux)
+            self.mm_lo, self.mm_step = pad1(self.mm_lo), pad1(self.mm_step, 1.0)
 
     def set_start_strategy(self, strategy: str = "medoid", k: int = 1,
                            seed: int = 0) -> None:
@@ -416,6 +456,98 @@ class GraphIndex:
             packed_mod.refresh_rows(p, self.state.adjacency, rows)
         self.packed = p
 
+    def attach_pq(self, pq=None, *, n_chunks: int = 32, n_centers: int = 256,
+                  seed: int = 0, generator: torch.Generator | None = None) -> None:
+        """Attach a product quantizer (``pq``, or one trained here on the
+        vectors with ``generator`` or ``seed``) and encode every row below
+        ``n``: enables ``search(mode="pq")``.  n_centers=16 is 4-bit PQ."""
+        vecs = self.state.vectors[: self.n]
+        if pq is None:
+            pq = train_pq(vecs, n_chunks=n_chunks, n_centers=n_centers,
+                          seed=seed, generator=generator)
+        pq = pq._replace(pivots=pq.pivots.to(self.device))
+        codes = torch.zeros((self.state.capacity, pq.n_chunks), dtype=torch.uint8,
+                            device=self.device)
+        codes[: self.n] = pq.encode(vecs)
+        self.pq, self.pq_codes = pq, codes
+
+    def attach_sq(self, *, n_bits: int = 8, sigma: float = 4.0) -> None:
+        """Train an int8 scalar quantizer on the vectors and encode every
+        row below ``n``: enables ``search(mode="sq")``."""
+        vecs = self.state.vectors[: self.n]
+        sq = train_scalar(vecs, n_bits=n_bits, sigma=sigma)
+        codes = torch.full((self.state.capacity, self.dim), 128, dtype=torch.uint8,
+                           device=self.device)
+        codes[: self.n] = sq.encode(vecs)
+        self.sq = sq
+        self.sq_codes, self.sq_bias2 = sq_center_codes(codes, sq.scale, sq.bias)
+        self.sq_aux = sq_aux_norms(self.sq_codes, sq.scale)
+
+    def attach_minmax(self) -> None:
+        """Encode every row below ``n`` with the training-free per-vector
+        MinMax quantizer: enables ``search(mode="minmax")``."""
+        mm = MinMaxQuantizer()
+        cap, n = self.state.capacity, self.n
+        codes, lo, step = mm.encode(self.state.vectors[:n])
+        dec = mm.decode(codes, lo, step)
+        self.mm = mm
+        self.mm_codes = torch.zeros((cap, self.dim), dtype=torch.int8, device=self.device)
+        self.mm_codes[:n] = (codes.to(torch.int32) - 128).to(torch.int8)
+        self.mm_lo = torch.zeros(cap, device=self.device)
+        self.mm_lo[:n] = lo
+        self.mm_step = torch.ones(cap, device=self.device)
+        self.mm_step[:n] = step
+        self.mm_aux = torch.zeros(cap, device=self.device)
+        self.mm_aux[:n] = (dec * dec).sum(1)
+
+    def attach_spherical(self, *, n_bits: int = 4, seed: int = 0,
+                         generator: torch.Generator | None = None) -> None:
+        """Draw a spherical quantizer's rotation (``generator`` or
+        ``seed``) and bit-pack every row below ``n``: enables
+        ``search(mode="spherical")``."""
+        sph = train_spherical(self.dim, n_bits=n_bits, seed=seed,
+                              generator=generator, device=self.device)
+        pc = sph.pack(sph.encode(self.state.vectors[: self.n]))
+        cap, n = self.state.capacity, self.n
+        self.sph = sph
+        self.sph_words = torch.zeros((cap, pc.words.shape[1]), dtype=torch.int32,
+                                     device=self.device)
+        self.sph_words[:n] = pc.words
+        self.sph_norms = torch.zeros(cap, device=self.device)
+        self.sph_norms[:n] = pc.norms
+        self.sph_cscale = torch.zeros(cap, device=self.device)
+        self.sph_cscale[:n] = pc.cscale
+
+    def _scorer_for_mode(self, mode: str):
+        """(ScorerDef, scorer data, expand_r) of a search mode: the scorer
+        the walk of that mode runs over."""
+        metric = self.config.metric
+        need = {"packed": self.packed, "pq": self.pq, "sq": self.sq,
+                "minmax": self.mm, "spherical": self.sph}
+        if mode in need and need[mode] is None:
+            raise ValueError(f"mode={mode!r} needs attach_{mode}() first")
+        if mode == "full":
+            sdef, sdata = full_precision_scorer(self.state.vectors,
+                                                self.state.sq_norms, metric)
+        elif mode == "packed":
+            sdef, sdata = packed_scorer(self.packed, metric)
+            return sdef, sdata, self.packed.r_pack
+        elif mode == "pq":
+            sdef, sdata = pq_scorer(self.pq_codes, self.pq.pivots, metric)
+        elif mode == "sq":
+            sdef, sdata = sq_scorer(self.sq_codes, self.sq.scale, self.sq_bias2,
+                                    self.sq_aux, metric)
+        elif mode == "minmax":
+            sdef, sdata = minmax_scorer(self.mm_codes, self.mm_lo, self.mm_step,
+                                        self.mm_aux, metric)
+        elif mode == "spherical":
+            sdef, sdata = spherical_scorer(
+                self.sph_words, self.sph_norms, self.sph_cscale, self.sph.rotation,
+                int(self.sph.rotation.shape[1]), int(self.sph.n_bits), metric)
+        else:
+            raise ValueError(f"unknown search mode {mode!r}")
+        return sdef, sdata, None
+
     # ----------------------------------------------------------------- search
     def _queries(self, queries, query_dtype=None) -> torch.Tensor:
         """[B, d] float32 queries on the index's device, rounded through
@@ -482,15 +614,20 @@ class GraphIndex:
         arrays.
 
         mode="full": full-precision walk with the scored-id ring.
-        mode="packed": packed int8 walk (`fatrow_expand`), then a
-        full-precision rerank of the top `rerank_l` candidates.
-        max_hops: cap the hop loop.  query_dtype: np.float16 rounds the
-        queries through float16 first.  router_starts: per-query router
-        entry points (None = config default)."""
-        if mode not in ("full", "packed"):
-            raise NotImplementedError(f"search mode {mode!r} is not ported")
-        if mode == "packed" and self.packed is None:
-            raise ValueError("mode='packed' needs build_mode='packed' or attach_packed()")
+        mode="packed" (packed int8 walk, `fatrow_expand`), "pq", "sq",
+        "minmax" or "spherical" (walks over the attached codes): router
+        entry points (packed ones for "packed", full-precision ones for the
+        others), the hop loop (the best-list dedup at W > 1 or in packed
+        mode, else the ring), then a full-precision rerank of the top
+        `rerank_l` candidates (None: all L).  max_hops: cap the hop loop.
+        query_dtype: np.float16 rounds the queries through float16 first.
+        router_starts: per-query router entry points (None = config
+        default)."""
+        if mode == "auto":
+            raise NotImplementedError("mode='auto' (flat-vs-graph routing) is not ported")
+        if mode not in _MODES:
+            raise ValueError(f"unknown search mode {mode!r}")
+        scorer = self._scorer_for_mode(mode)
         q = self._queries(queries, query_dtype)
         l = l_search if l_search is not None else max(k, self.config.l_build)
         l = max(l, k)
@@ -499,42 +636,49 @@ class GraphIndex:
         n_start = self._n_start(router_ids, router_starts)
         router_rows = (self._router_rows(mode == "packed")
                        if router_ids is not None else None)
-        batch = self._packed_search_batch if mode == "packed" else self._full_search_batch
-        parts = [
-            batch(q[off:off + self.search_batch_size], k, l, w, rerank_l,
-                  max_hops, router_ids, router_rows, n_start)
-            for off in range(0, q.shape[0], self.search_batch_size)
-        ]
+        bs = self.search_batch_size
+        if mode == "full":
+            parts = [self._full_search_batch(q[off:off + bs], k, l, w, max_hops,
+                                             router_ids, router_rows, n_start)
+                     for off in range(0, q.shape[0], bs)]
+        else:
+            parts = [self._quant_search_batch(q[off:off + bs], mode, scorer, k, l, w,
+                                              rerank_l, max_hops, router_ids,
+                                              router_rows, n_start)
+                     for off in range(0, q.shape[0], bs)]
         fd, fi, cmps, hops = (torch.cat(t).cpu().numpy() for t in zip(*parts))
         return fd, fi, _stats(cmps, hops, fi)
 
-    def _packed_search_batch(self, q, k, l, w, rl, mh, router_ids,
-                             router_rows, n_start):
-        """One query batch: router entry points, packed hop loop,
-        full-precision rerank of the top `rl` candidates."""
+    def _quant_search_batch(self, q, mode, scorer, k, l, w, rl, mh, router_ids,
+                            router_rows, n_start):
+        """One query batch of a compressed walk: router entry points, the
+        hop loop over the mode's scorer, full-precision rerank of the top
+        `rl` candidates."""
         cfg = self.config
         metric = cfg.metric
-        if router_ids is not None:
-            st = _router_topk_packed_pre(
-                *router_rows, router_ids, q, metric, n_start,
-                compute=self.router_compute,
-            )
-        else:
+        if router_ids is None:
             st = self._start()
-        sdef, sdata = packed_scorer(self.packed, metric)
+        elif mode == "packed":
+            st = _router_topk_packed_pre(*router_rows, router_ids, q, metric,
+                                         n_start, compute=self.router_compute)
+        else:
+            st = _router_topk_full_pre(*router_rows, router_ids, q, metric, n_start)
+        sdef, sdata, expand_r = scorer
         res = beam_search_scored(
             sdef, sdata, self.state.adjacency, st, q,
-            l_search=l, beam_width=w, max_hops=mh or cfg.max_hops, dedup="list",
+            l_search=l, beam_width=w, max_hops=mh or cfg.max_hops,
+            history_capacity=cfg.history_capacity(l),
+            dedup="list" if (mode == "packed" or w > 1) else "ring",
+            expand_r=expand_r, merge_trunc=self.merge_trunc,
         )
         rl_eff = min(rl, l) if rl else l
         fd, fi = _rerank(res.ids[:, :rl_eff], q, self.state.vectors,
                          self.state.sq_norms, self.state.valid, metric, k)
         return fd, fi, res.cmps, res.hops
 
-    def _full_search_batch(self, q, k, l, w, rl, mh, router_ids, router_rows,
-                           n_start):
+    def _full_search_batch(self, q, k, l, w, mh, router_ids, router_rows, n_start):
         """One query batch of the full-precision walk (ring dedup, sized by
-        `GraphConfig.history_capacity`); `rl` is unused."""
+        `GraphConfig.history_capacity`)."""
         cfg = self.config
         st = (_router_topk_full_pre(*router_rows, router_ids, q, cfg.metric, n_start)
               if router_ids is not None else self._start())
@@ -603,15 +747,17 @@ class GraphIndex:
         the walk.
         mode="packed": the production walk — router entry points, packed
         int8 hops with the inline filter, full-precision rerank of the top
-        `rerank_l` matches; `max_hops` and `query_dtype` apply here.  As
-        in the reference, the scan and the full route read the float32
-        queries, and the full route walks up to `config.max_hops`."""
+        `rerank_l` matches; `max_hops` and `query_dtype` apply here.  Every
+        other mode ("full" and the quantized ones) takes the full-precision
+        route, as in the reference.  As in the reference, the scan and the
+        full route read the float32 queries, and the full route walks up
+        to `config.max_hops`."""
         if self.labels is None:
             raise ValueError("attach_labels first")
         if method not in ("inline", "multihop", "prefilter"):
             raise ValueError(f"unknown method {method!r}")
-        if mode not in ("full", "packed"):
-            raise NotImplementedError(f"filtered mode {mode!r} is not ported")
+        if mode not in _MODES:
+            raise ValueError(f"unknown search mode {mode!r}")
         if isinstance(predicate, str):
             predicate = parse_predicate(predicate)
         accept_fn = compile_accept(predicate, self.labels.vocab, self.state.capacity)
@@ -725,6 +871,7 @@ class GraphIndex:
             l_search=l, beam_width=w, max_hops=mh, dedup="list",
             expand_r=self.packed.r_pack, accept_fn=accept_fn,
             accept_data=self.labels.bits, filter_beta=beta,
+            merge_trunc=self.merge_trunc,
         )
         fd, fi = _rerank(res.match_i[:, :rl], q, self.state.vectors,
                          self.state.sq_norms, self.state.valid, metric, k)

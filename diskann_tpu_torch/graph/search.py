@@ -24,6 +24,13 @@ distances of matching nodes by ``filter_beta``; ``filter_mode="multihop"``
 admits only matching nodes to the navigation list and tunnels through the
 closest rejected neighbours with a second, accept-only expansion.
 
+``reserve`` keeps extra list slots past the active window of
+``l_search``: frontier selection and termination see only the window, and
+paged search drains results so the reserve slides in.  A diversity quota
+(``diverse_attrs``, ``diverse_l``) evicts, after every merge, the entries
+whose rank within their attribute reaches ``diverse_l``.  ``merge_trunc``
+cuts each hop's candidates to the list width before the merge.
+
 Every sort is stable, which reproduces the reference's tie order and
 therefore its ids and ``cmps`` exactly for the same scorer inputs.
 """
@@ -37,7 +44,8 @@ import torch
 from diskann_tpu_torch.graph.scorers import ScorerDef, full_precision_scorer
 from diskann_tpu_torch.ops.distance import Metric
 from diskann_tpu_torch.ops.topk import (
-    SENTINEL, isin_rows, mask_duplicates_sorted, sort_lex, sort_with,
+    SENTINEL, grouped_ranks, isin_rows, mask_duplicates_sorted, sort_lex,
+    sort_with,
 )
 
 _INF = float("inf")
@@ -153,18 +161,13 @@ def beam_search_scored(
     return_state: bool = False,
     reserve: int = 0,
     reseed_ring: bool = False,
-    diverse_attrs=None,
-    diverse_l: int = 0,
-    merge_trunc: bool = False,
+    diverse_attrs: torch.Tensor | None = None,   # [cap] i32 attribute per point
+    diverse_l: int = 0,           # per-attribute quota in the navigation list
+    merge_trunc: bool = False,    # cut candidates to the list width
 ):
     """Batched greedy beam search with a pluggable scorer.  Returns a
     `SearchResult`, and with ``return_state`` also the final
-    `ResumeState`.  ``reserve``, diversity quotas and ``merge_trunc`` are
-    not ported yet and raise."""
-    if reserve or diverse_attrs is not None or diverse_l or merge_trunc:
-        raise NotImplementedError(
-            "reserve, diversity quotas and merge_trunc are not ported"
-        )
+    `ResumeState`."""
     if dedup not in ("ring", "list", "merge"):
         raise ValueError(f"unknown dedup {dedup!r}")
     if filter_mode not in ("inline", "multihop"):
@@ -178,7 +181,7 @@ def beam_search_scored(
     s = start_ids.shape[-1]
     w = beam_width
     l, c, h = search_geometry(
-        l_search=l_search, reserve=0, beam_width=w, r=r, s=s,
+        l_search=l_search, reserve=reserve, beam_width=w, r=r, s=s,
         expand_r=expand_r, history_capacity=history_capacity, dedup=dedup,
     )
     ring_hops = (h - s) // c
@@ -269,13 +272,36 @@ def beam_search_scored(
             )
             best_d, best_i, best_e = md[:, :l], mi[:, :l], me[:, :l]
 
+    # ---- in-traversal diversity quota: after every merge, evict entries
+    # whose distance rank within their attribute is >= diverse_l, before
+    # the cut to L, so their slots go to other attributes ----
+    use_quota = diverse_attrs is not None and diverse_l > 0
+    if use_quota:
+        acap = diverse_attrs.shape[0]
+
+        def quota_evict(md, key):
+            """md / key: [B, M] distance-sorted list, key = id*2 | expanded
+            (-1 empty).  Returns the list re-sorted after the eviction."""
+            kid = key >> 1
+            a = torch.where(kid >= 0, diverse_attrs[kid.clamp(0, acap - 1).long()], -1)
+            evict = (kid >= 0) & (grouped_ranks(a) >= diverse_l)
+            return sort_with(torch.where(evict, _INF, md), torch.where(evict, -1, key))
+
+        best_d, k0 = quota_evict(
+            best_d, torch.where(best_i >= 0, best_i * 2 + best_e, -1))
+        best_i, best_e = k0 >> 1, k0 & 1
+
     pool_d = torch.full((b, p), _INF, device=dev)
     pool_i = torch.full((b, p), -1, dtype=torch.int32, device=dev)
     pool_n = torch.zeros(b, dtype=torch.int32, device=dev)
     pos = torch.arange(l, device=dev).expand(b, l)
+    # frontier and termination see the first l_search slots only
+    active = pos < l_search
 
     for it in range(max_hops):
         unexp = (best_e == 0) & (best_i >= 0)
+        if reserve:
+            unexp &= active
         if not bool(unexp.any()):
             break
         # ---- 1. frontier: the W closest unexpanded entries per row ----
@@ -310,6 +336,8 @@ def beam_search_scored(
             md = torch.where(dup, _INF, md)
             key2 = torch.where(dup, -1, mi * 2 + (key & 1))
             md, key2 = sort_with(md, key2)
+            if use_quota:
+                md, key2 = quota_evict(md, key2)
             best_d = md[:, :l]
             best_i = key2[:, :l] >> 1
             best_e = key2[:, :l] & 1
@@ -386,6 +414,13 @@ def beam_search_scored(
             else:
                 cd = _beta_bias(cd, acc, filter_beta)
 
+        # ---- 4c. cut the candidates to the l closest: no more can enter
+        # the list.  A stable sort keeps the lower column first on equal
+        # distances, as the reference's top_k ----
+        if merge_trunc and extra_d is None and c > l:
+            cd, order = torch.sort(cd, dim=1, stable=True)
+            cd, cand_ids = cd[:, :l], cand_ids.gather(1, order[:, :l])
+
         # ---- 5. merge into the best lists: (id, expanded) in one word ----
         md = [best_d, cd]
         key = [best_i * 2 + best_e, torch.where(cand_ids >= 0, cand_ids * 2, -1)]
@@ -393,6 +428,8 @@ def beam_search_scored(
             md.append(extra_d)
             key.append(extra_k)
         md, key = sort_with(torch.cat(md, 1), torch.cat(key, 1))
+        if use_quota:
+            md, key = quota_evict(md, key)
         best_d = md[:, :l]
         best_i = key[:, :l] >> 1
         best_e = key[:, :l] & 1

@@ -33,8 +33,11 @@ def test_the_scan_sees_the_package():
     assert "diskann_tpu_torch/ops/kernels/fatrow_expand.py" in FILES
     for mod in ("__init__", "predicate", "labels", "compile"):
         assert f"diskann_tpu_torch/filters/{mod}.py" in FILES
-    for path in ("graph/delete.py", "bench/runbook.py", "devices.py"):
+    for path in ("graph/delete.py", "bench/runbook.py", "devices.py", "graph/modes.py"):
         assert f"diskann_tpu_torch/{path}" in FILES
+    for mod in ("__init__", "bits", "binary", "transforms", "kmeans", "pq", "scalar",
+                "minmax", "spherical"):
+        assert f"diskann_tpu_torch/quant/{mod}.py" in FILES
     roots = set(_imported_roots(ast.parse("import jax.numpy\nfrom diskann_tpu.x import y")))
     assert roots == {"jax", "diskann_tpu"}
 

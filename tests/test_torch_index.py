@@ -150,9 +150,13 @@ def test_routed_build_keeps_invariants():
 
 
 def test_unported_modes_raise(torch_index):
+    # the quantized modes are ported now: without their attachment they
+    # ask for it; mode="auto" and the i8 query wire are not ported
     idx, _ = torch_index
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="attach_pq"):
         idx.search(np.zeros((1, D), np.float32), K, mode="pq")
+    with pytest.raises(NotImplementedError):
+        idx.search(np.zeros((1, D), np.float32), K, mode="auto")
     with pytest.raises(NotImplementedError):
         idx.search(np.zeros((1, D), np.float32), K, mode="packed", query_dtype="i8")
     with pytest.raises(ValueError):

@@ -191,13 +191,22 @@ def test_resumed_pass_matches_jax(graphs, filtered):
 
 
 def test_unported_options_raise(graphs):
+    # reserve, the diversity quota and merge_trunc are ported now (held
+    # against JAX in test_torch_modes.py): they run, and unknown options
+    # still raise
     _, tidx, q = graphs
     tdef, tdata = packed_scorer(tidx.packed, Metric.L2)
     args = (tdef, tdata, tidx.state.adjacency, torch.zeros(1, dtype=torch.int32), t(q))
+    attrs = torch.zeros(tidx.state.capacity, dtype=torch.int32)
     for kw in (dict(reserve=4), dict(diverse_l=2), dict(merge_trunc=True),
-               dict(diverse_attrs=torch.zeros(8, dtype=torch.int32), diverse_l=1)):
-        with pytest.raises(NotImplementedError):
-            beam_search_scored(*args, l_search=8, dedup="list", **kw)
+               dict(diverse_attrs=attrs, diverse_l=1)):
+        res = beam_search_scored(*args, l_search=8, dedup="list",
+                                 expand_r=tidx.packed.r_pack, **kw)
+        assert res.ids.shape == (len(q), 8 + kw.get("reserve", 0))
+        if "diverse_attrs" in kw:       # one attribute, quota 1: one entry left
+            assert (n(res.ids)[:, 1:] == -1).all() and (n(res.ids)[:, 0] >= 0).all()
+    with pytest.raises(ValueError):
+        beam_search_scored(*args, l_search=8, dedup="sorted")
 
 
 def test_search_geometry_matches_jax():

@@ -50,7 +50,29 @@ def jax_index_arrays(idx) -> dict:
         labels = {"vocab": dict(idx.labels.vocab), "bits": np.asarray(idx.labels.bits)}
     return dict(config=cfg, graph=graph, packed=packed, n=idx.n,
                 n_deleted=idx.n_deleted, free_slots=list(idx.free_slots),
-                labels=labels, device=CPU)
+                labels=labels, device=CPU, **jax_attachments(idx))
+
+
+def jax_attachments(idx) -> dict:
+    """The quantized attachments of a JAX index, as the keyword arguments
+    `pq`, `sq`, `minmax` and `spherical` of `graph_index_from_arrays`."""
+    a = np.asarray
+    out = {}
+    if getattr(idx, "pq", None) is not None:
+        out["pq"] = {"pivots": a(idx.pq.pivots), "dim": idx.pq.dim,
+                     "codes": a(idx.pq_codes)}
+    if getattr(idx, "sq", None) is not None:
+        out["sq"] = {"scale": a(idx.sq.scale), "bias": a(idx.sq.bias),
+                     "n_bits": idx.sq.n_bits, "codes": a(idx.sq_codes),
+                     "bias2": a(idx.sq_bias2), "aux": a(idx.sq_aux)}
+    if getattr(idx, "mm", None) is not None:
+        out["minmax"] = {"codes": a(idx.mm_codes), "lo": a(idx.mm_lo),
+                         "step": a(idx.mm_step), "aux": a(idx.mm_aux)}
+    if getattr(idx, "sph", None) is not None:
+        out["spherical"] = {"rotation": a(idx.sph.rotation), "n_bits": int(idx.sph.n_bits),
+                            "words": a(idx.sph_words), "norms": a(idx.sph_norms),
+                            "cscale": a(idx.sph_cscale)}
+    return out
 
 
 def rand_word_rows(rng, n_nodes: int, nwr: int) -> np.ndarray:
