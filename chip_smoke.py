@@ -65,19 +65,44 @@ Phases, each printing one line:
    packed) and determinant_rerank (packed); fails on an id outside the
    radius, coverage < 0.9, overlapping or unsorted pages, a broken
    quota, an invalid selection, or a packed route without K1;
-13. the 100k x 768 inner-product shape of `scripts/bench_wiki100k.py`:
+13. tiered search on the same index (`scripts/bench_tiered.py`'s setting):
+   its vectors written to an .fbin and dropped from the card, the native
+   host reader (65536-row cache) under `TieredIndex`, a 65536-row router,
+   `search_batched` (k=10, L=100, batch 4096, router_starts=4) at io_limit
+   16, 32, 64, 100 and with float16 rows, `search_filtered("cat0")` and
+   `search_range`, one call traced; fails unless some io_limit reaches
+   recall@10 >= 0.95 through the native reader with K1 launched, every
+   range result lies in the radius and every filtered result honours
+   "cat0";
+14. the 100k x 768 inner-product shape of `scripts/bench_wiki100k.py`:
    full build, attach_packed(dp=128) / attach_sq / attach_pq(192 chunks),
    k=100 search at L=200, W=8, router_starts=16, max_hops=12 in packed,
-   sq and pq mode; fails below recall@100 0.99 for packed or sq.
+   sq and pq mode; fails below recall@100 0.99 for packed or sq; then the
+   index saved and loaded, with identical ids, distances and hops in full,
+   packed, sq and pq mode;
+15. the merged build: `scripts/bench_deep20m.py`'s recipe cut to 2M points
+   in 4 shards (clustered, 32768 clusters, exact top-10), `build_merged(R=40,
+   L=64, overlap 2, dp=32, codes="sq")`, the native reader and a 65536-row
+   router, a sweep of L = 40, 80, 160 x rerank_l = 16, 64 (float16 rows),
+   then save and `TieredIndex.load`; fails unless some point reaches
+   recall@10 >= 0.95, both kernels launched in the build, every merge
+   invariant holds and the reload returns identical ids.
 
 Phase 4 also trains every quantizer on the CPU copy of its small index,
 carries the trained state to the card and holds each quantized mode's
-ids card against CPU (>= 99% identical).
+ids card against CPU (>= 99% identical); and on a second 20k input builds
+a `TieredIndex` on the card, carries it to the CPU (>= 99% identical ids),
+saves it on the card and loads it on the CPU (identical ids), and runs a
+3-shard `build_merged` with codes "packed" and "sq" on both devices
+(invariants, recall@10 within 0.01).  Every temporary directory is
+removed, on failure too.
 
 Phase 6 also traces one filtered walk call with torch.profiler and splits
 its device time between K1, the matched-list merges and the rest; phase 9
 traces one more delete and splits its device time between discovery,
-`fill_rows` and `refresh_rows` (of which K2).
+`fill_rows` and `refresh_rows` (of which K2); phase 13 splits a tiered
+call between the walk, the wait on the host gather, the row upload and
+the rerank.
 
 Then a JSON line with the kernels, the `nvidia-smi` name/power-limit line,
 and last the result line `{"ok": true, "device": {...}}`.  Any failed phase
@@ -134,6 +159,16 @@ WIKI_SEARCH = dict(l_search=200, beam_width=8, router_starts=16, max_hops=12)
 WIKI_MIN_RECALL100 = 0.99
 # `BENCH_WIKI100K_r04.json` at mh12 / W8 / rs16: (recall@10, recall@100)
 R04_WIKI = {"packed": (0.9999, 0.9993), "sq": (0.9999, 0.9993), "pq": None}
+# the tiered search on the 1M index (`scripts/bench_tiered.py`'s setting)
+TIERED_IO = (16, 32, 64, 100)
+TIERED_KW = dict(l_search=100, batch_size=4096, router_starts=4)
+# the merged build: `scripts/bench_deep20m.py`'s recipe cut from 20M points
+# in 24 shards to 2M in 4 (about 1M points per shard, against 1.67M)
+MERGED_N, MERGED_NQ, MERGED_SHARDS = 2_000_000, 1024, 4
+MERGED_L, MERGED_RL = (40, 80, 160), (16, 64)
+# `BENCH_DEEP20M_r04.json` (20M, codes sq): recall@10 at (L, rerank_l)
+R04_DEEP20M = {(40, 16): 0.9739, (80, 16): 0.9922, (80, 64): 0.9924, (160, 16): 0.994,
+               (160, 64): 0.9942}
 # the H100 SXM's published peaks (NVIDIA data sheet): HBM bytes and dense
 # int8 operations per millisecond
 HBM_BYTES_PER_MS = 3.35e12 / 1e3
@@ -587,11 +622,13 @@ def _device_ms(e, total: bool = False) -> float:
     return getattr(e, name, getattr(e, old, 0)) / 1e3
 
 
-def profile_call(fn, device, ranges) -> dict:
+def profile_call(fn, device, ranges, names=()) -> dict:
     """Run ``fn()`` once under torch.profiler, each (name, module, attr) of
-    ``ranges`` traced as a range called name.  Returns the wall time, the
-    device's busy time (kernels only) and idle share, the device time of
-    each range (kernels launched inside it) and the kernel events."""
+    ``ranges`` traced as a range called name, beside the ranges ``names``
+    that the code opens itself.  Returns the wall time, the device's busy
+    time (kernels only) and idle share, the device time of each range
+    (kernels launched inside it), the host time spent inside each range
+    and the kernel events."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -616,7 +653,7 @@ def profile_call(fn, device, ranges) -> dict:
     finally:
         for mod, attr, orig in reversed(saved):
             setattr(mod, attr, orig)
-    names = {name for name, _, _ in ranges}
+    names = {name for name, _, _ in ranges} | set(names)
     ev = prof.key_averages()
     cuda = torch.autograd.DeviceType.CUDA
     # kernels are the device-side events; a range also shows there as one
@@ -625,9 +662,11 @@ def profile_call(fn, device, ranges) -> dict:
     busy = sum(_device_ms(e) for e in kern)
     per = {name: sum(_device_ms(e, total=True) for e in ev
                      if e.key == name and e.device_type != cuda) for name in names}
+    host = {name: sum(e.cpu_time_total for e in ev
+                      if e.key == name and e.device_type != cuda) / 1e3 for name in names}
     return {"wall_ms": wall, "device_ms": busy,
             "idle_share": 1 - busy / wall if wall > 0 else None,
-            "ranges": per, "kernels": kern}
+            "ranges": per, "host_ms": host, "kernels": kern}
 
 
 def log_top_kernels(tag: str, kernels, n: int = 10) -> list:
@@ -1135,6 +1174,362 @@ def run_modes(idx, qd, k1, *, min_cover: float = 0.9) -> dict:
     return out
 
 
+def merged_invariants(ti, what: str) -> None:
+    """A tiered graph's structure on its device: no self loop, no repeated
+    id in a row, degrees equal row contents, and the packed id words equal
+    adjacency when a packed layout is attached."""
+    import torch
+
+    g = ti.graph
+    adj = g.state.adjacency[: g.n]
+    if (adj == torch.arange(g.n, device=adj.device)[:, None]).any():
+        raise RuntimeError(f"{what}: self-loop")
+    s = torch.sort(torch.where(adj < 0, 2**31 - 1, adj), dim=1).values
+    if ((s[:, 1:] == s[:, :-1]) & (s[:, 1:] < 2**31 - 1)).any():
+        raise RuntimeError(f"{what}: a row repeats an id")
+    if not torch.equal((adj >= 0).sum(1, dtype=torch.int32), g.state.degrees[: g.n]):
+        raise RuntimeError(f"{what}: degrees do not match adjacency rows")
+    if g.packed is not None:
+        cap, rs = g.state.adjacency.shape
+        words = g.packed.rows.view(cap + 1, g.packed.nwr * 128)[:cap, :rs]
+        if not torch.equal(words, g.state.adjacency):
+            raise RuntimeError(f"{what}: the packed id words differ from adjacency")
+
+
+def check_small_tiered(torch, device, n: int = 20_000) -> float:
+    """The tiered index and the merged build on a small input (n points):
+    a `TieredIndex.build_from_host` on the card, carried to the CPU, both
+    searched with the router (>= 99% identical ids); the card's tier saved
+    and loaded on the CPU (ids identical to the carried copy's); then
+    `build_merged` (3 shards, R=24, L=48, occlusion cap 64) with codes
+    "packed" and "sq" on both devices: every invariant, and recall@10
+    within 0.01 (the two devices' k-means draw different partitions).  Returns the smallest share."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from diskann_tpu_torch import FlatIndex, GraphConfig
+    from diskann_tpu_torch.bench.harness import make_clustered
+    from diskann_tpu_torch.bench.recall import knn_recall
+    from diskann_tpu_torch.convert import graph_index_from_arrays, index_arrays
+    from diskann_tpu_torch.tiered import HostVectorStore, TieredIndex, build_merged
+
+    cpu = torch.device("cpu")
+    x, q = make_clustered(2, n, 512, D, n_clusters=256, sigma=0.35)
+    _, gt = FlatIndex(x, device=device).search(q, K)
+    cfg = GraphConfig(max_degree=32, l_build=64, beam_width=4)
+    card = TieredIndex.build_from_host(x, cfg, dp=64, insert_batch_size=4096, device=device)
+    host = TieredIndex(graph_index_from_arrays(**index_arrays(card.graph), device=cpu,
+                                               insert_batch_size=4096), HostVectorStore(x))
+    kw = dict(l_search=64, batch_size=256, router_starts=4)
+    for ti in (card, host):
+        ti.attach_router(4096)
+    _, ids_card, _ = card.search_batched(q, K, **kw)
+    _, ids_host, _ = host.search_batched(q, K, **kw)
+    share = float((ids_card == ids_host).mean())
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_small_")
+    try:
+        card.save(f"{tmp}/tiered")
+        back = TieredIndex.load(f"{tmp}/tiered", device=cpu)
+        back.attach_router(4096)
+        _, ids_back, _ = back.search_batched(q, K, **kw)
+    finally:
+        shutil.rmtree(tmp)
+    same = bool(np.array_equal(ids_back, ids_host))
+    log(f"[small] n={n} tiered search (router 4096, L=64) on the card vs the CPU: identical "
+        f"ids {share:.4f} (need >= 0.99), recall@{K} {knn_recall(ids_card, gt, K):.4f}; saved "
+        f"on the card, loaded on the CPU: ids identical to the CPU copy's {same}")
+    if share < 0.99 or not same:
+        raise RuntimeError(f"[small] tiered: card vs CPU {share:.4f}, reload identical {same}")
+    # an occlusion cap of 64 keeps the two CPU builds' prune near 15 s each
+    # (at 256 they took 85-102 s of the card host's CPU)
+    mcfg = GraphConfig(max_degree=24, l_build=48, beam_width=4, build_max_hops=12,
+                       max_occlusion_size=64)
+    for codes in ("packed", "sq"):
+        rec = {}
+        for name, dev in (("card", device), ("cpu", cpu)):
+            (t, dt) = _timed(torch, dev, lambda: build_merged(
+                x, mcfg, n_shards=3, dp=32, insert_batch_size=4096, codes=codes, device=dev))
+            merged_invariants(t, f"[small] merged {codes} on the {name}")
+            _, ids, _ = t.search_batched(q, K, l_search=64, batch_size=512)
+            rec[name] = (knn_recall(ids, gt, K), dt)
+            del t
+        diff = abs(rec["card"][0] - rec["cpu"][0])
+        log(f"[small] n={n} build_merged 3 shards codes={codes}: invariants held on both; "
+            f"recall@{K} card {rec['card'][0]:.4f} ({rec['card'][1]:.1f}s) vs CPU "
+            f"{rec['cpu'][0]:.4f} ({rec['cpu'][1]:.1f}s), |diff| {diff:.4f} (need <= 0.01)")
+        if diff > 0.01:
+            raise RuntimeError(f"[small] merged {codes}: recall differs by {diff:.4f}")
+    return share
+
+
+def run_tiered(idx, qd, gt, gt_cat0, radius, k1) -> dict:
+    """`scripts/bench_tiered.py`'s setting on the main path's 1M index: its
+    vectors written to an .fbin, the start pinned and the device copy
+    dropped, `TieredIndex(graph, HostVectorStore.from_fbin(path,
+    cache_rows=65536))` with a 65536-row router; `search_batched` on all
+    queries (k=10, L=100, batch 4096, router_starts=4) at io_limit in
+    TIERED_IO, float16 rows at io_limit 32, `search_filtered("cat0", L=90)`
+    and `search_range` on RANGE_NQ queries at the modes phase's radius; one
+    call traced.  Raises unless some io_limit reaches TARGET_RECALL, K1
+    launched, the store is the native reader, every range result lies in
+    the radius and every filtered result honours its predicate."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from diskann_tpu_torch.bench.recall import knn_recall
+    from diskann_tpu_torch.io_ import write_fbin
+    from diskann_tpu_torch.ops.distance import distance_to_set
+    from diskann_tpu_torch.tiered import HostVectorStore, TieredIndex
+
+    device = qd.device
+    q = qd.cpu().numpy()
+    n = idx.n
+    out = {"rows": []}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tiered_")
+    try:
+        x = idx.state.vectors[:n].cpu().numpy()
+        path = os.path.join(tmp, "base.fbin")
+        t0 = time.time()
+        write_fbin(path, x)
+        out["write_s"] = time.time() - t0
+        idx.drop_vectors()
+        torch.cuda.empty_cache()
+        ti = TieredIndex(idx, HostVectorStore.from_fbin(path, cache_rows=1 << 16))
+        if not ti.store.is_native:
+            raise RuntimeError("[tiered] the store is not the native reader")
+        ti.attach_router(65536)
+        log(f"[tiered] {n} x {D} vectors to {path} ({os.path.getsize(path) / 1e9:.2f} GB, "
+            f"{out['write_s']:.1f}s); device copy dropped; native reader, 65536-row LRU "
+            f"cache, router 65536 rows")
+
+        def run(label, io, **kw):
+            ti.io_limit = io
+            ti.search_batched(q[:4096], K, **TIERED_KW, **kw)          # warm-up
+            ti.io_stats = {"rows_staged": 0, "stage_s": 0.0}
+            before = k1.launches
+            (d, ids, st), dt = _timed(torch, device,
+                                      lambda: ti.search_batched(q, K, **TIERED_KW, **kw))
+            if ids.shape != (NQ, K) or not np.isfinite(d[ids >= 0]).all():
+                raise RuntimeError(f"[tiered] {label}: malformed result")
+            row = {"run": label, "io_limit": io, "recall": knn_recall(ids, gt, K),
+                   "qps": NQ / dt, "rows_staged": ti.io_stats["rows_staged"],
+                   "stage_submit_s": ti.io_stats["stage_s"], "k1_launches": k1.launches - before,
+                   "mean_hops": float(st.hops.mean())}
+            out["rows"].append(row)
+            log(f"[tiered] {label} io_limit={io} L=100 batch 4096 router_starts=4: "
+                f"recall@{K}={row['recall']:.4f} qps={row['qps']:.0f} rows staged "
+                f"{row['rows_staged']} (submit {row['stage_submit_s'] * 1e3:.1f} ms) "
+                f"K1 launches {row['k1_launches']} mean_hops={row['mean_hops']:.2f}")
+
+        for io in TIERED_IO:
+            run("float32 rows", io)
+        run("float16 rows", 32, row_wire=np.float16)
+        best = max(r["recall"] for r in out["rows"])
+        if best < TARGET_RECALL:
+            raise RuntimeError(f"[tiered] no io_limit reached recall {TARGET_RECALL} ({best:.4f})")
+        if min(r["k1_launches"] for r in out["rows"]) < 1:
+            raise RuntimeError("[tiered] K1 never launched")
+
+        ti.io_limit = None
+        mask = pred_mask(bench_cats(n), "cat0")
+        before = k1.launches
+        (d, ids, st), dt = _timed(torch, device, lambda: ti.search_filtered(
+            q, "cat0", K, l_search=90, batch_size=4096))
+        check_filtered_ids(ids, mask, "[tiered] filtered 'cat0'")
+        out["filtered"] = {"recall": knn_recall(ids, gt_cat0, K), "qps": NQ / dt,
+                           "k1_launches": k1.launches - before}
+        log(f"[tiered] search_filtered 'cat0' L=90: recall@{K}="
+            f"{out['filtered']['recall']:.4f} qps={out['filtered']['qps']:.0f} "
+            f"K1 launches {out['filtered']['k1_launches']}; every result honours 'cat0'")
+        if out["filtered"]["k1_launches"] < 1:
+            raise RuntimeError("[tiered] the filtered walk never launched K1")
+
+        qr = q[:RANGE_NQ]
+        res, dt = _timed(torch, device, lambda: ti.search_range(qr, radius, l_init=32))
+        xd = torch.from_numpy(x).to(device)
+        dm = distance_to_set(torch.from_numpy(qr).to(device), xd, idx.metric).cpu().numpy()
+        del xd
+        hit = tot = 0
+        for i, got in enumerate(res):
+            if len(got) and (dm[i, got] > radius * (1 + 1e-4)).any():
+                raise RuntimeError("[tiered] a range result lies outside the radius")
+            want = np.nonzero(dm[i] <= radius)[0]
+            hit += len(np.intersect1d(got, want))
+            tot += len(want)
+        out["range"] = {"radius": radius, "coverage": hit / max(tot, 1), "s": dt}
+        log(f"[tiered] search_range {RANGE_NQ} queries radius {radius:.3f}: every id inside "
+            f"the radius, coverage {out['range']['coverage']:.4f}, {dt:.2f}s")
+
+        ti.io_limit = 32
+        p = profile_call(lambda: ti.search_batched(q, K, **TIERED_KW), device, [],
+                         names=("tiered.traverse", "tiered.stage_wait", "tiered.upload",
+                                "tiered.rerank"))
+        k1_ms = sum(_device_ms(e) for e in p["kernels"] if "fatrow_expand" in e.key)
+        out["profile"] = {"wall_ms": p["wall_ms"], "device_ms": p["device_ms"],
+                          "idle_share": p["idle_share"], "k1_ms": k1_ms,
+                          "host_ms": p["host_ms"], "device_ranges_ms": p["ranges"]}
+        hm, dr = p["host_ms"], p["ranges"]
+        log(f"[profile] tiered search_batched io_limit=32 ({NQ} queries, L=100): wall "
+            f"{p['wall_ms']:.1f} ms = traverse {hm['tiered.traverse']:.1f} + gather wait "
+            f"{hm['tiered.stage_wait']:.1f} + upload {hm['tiered.upload']:.1f} + rerank "
+            f"{hm['tiered.rerank']:.1f} ms (host time in each range); device busy "
+            f"{p['device_ms']:.2f} ms (idle share {p['idle_share']:.3f}): traverse "
+            f"{dr['tiered.traverse']:.2f}, upload {dr['tiered.upload']:.2f}, rerank "
+            f"{dr['tiered.rerank']:.2f} ms, K1 {k1_ms:.2f} ms")
+        out["profile"]["top"] = log_top_kernels("profile", p["kernels"], n=6)
+    finally:
+        shutil.rmtree(tmp)
+    return out
+
+
+def run_merged(device, k1, k2) -> dict:
+    """The JAX package's 20M recipe (`scripts/bench_deep20m.py`, codes
+    "sq"), cut to MERGED_N points in MERGED_SHARDS shards: clustered data
+    (32768 clusters, sigma 0.35) with exact top-10 by `FlatIndex`, written
+    to an .fbin; `build_merged(R=40, L=64, alpha=1.2, W=4,
+    build_max_hops=12, occlusion cap 256, overlap 2, dp=32, batch 8192)`;
+    the store swapped for the native reader (1M-row cache) and a
+    65536-row router; the sweep of MERGED_L x MERGED_RL (batch 1024,
+    router_starts=4, float16 rows) and the full-list recall per L; then
+    save (copy_vectors=False) and load.  Raises unless some point reaches
+    TARGET_RECALL, K1 and K2 launched in the build and the reload returns
+    identical ids."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from diskann_tpu_torch import FlatIndex, GraphConfig
+    from diskann_tpu_torch.bench.harness import make_clustered
+    from diskann_tpu_torch.bench.recall import knn_recall
+    from diskann_tpu_torch.io_ import write_fbin
+    from diskann_tpu_torch.tiered import HostVectorStore, TieredIndex, build_merged
+
+    out = {"n": MERGED_N, "nq": MERGED_NQ, "shards": MERGED_SHARDS, "rows": []}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_merged_")
+    try:
+        (x, q), dt = _timed(torch, device, lambda: make_clustered(
+            7, MERGED_N, MERGED_NQ, D, n_clusters=32768, sigma=0.35))
+        (_, gt), dt_gt = _timed(torch, device, lambda: FlatIndex(x, device=device).search(q, K))
+        path = os.path.join(tmp, "base.fbin")
+        write_fbin(path, x)
+        log(f"[merged] data {MERGED_N} x {D} (32768 clusters, sigma 0.35): {dt:.1f}s; exact "
+            f"top-{K} of {MERGED_NQ} queries: {dt_gt:.1f}s; .fbin written")
+        cfg = GraphConfig(max_degree=40, l_build=64, alpha=1.2, beam_width=4,
+                          build_max_hops=12, max_occlusion_size=256)
+        take_launches(k1, k2)
+        ti, dt = _timed(torch, device, lambda: build_merged(
+            x, cfg, n_shards=MERGED_SHARDS, overlap=2, dp=32, insert_batch_size=8192,
+            codes="sq", device=device, verbose=True))
+        out["build_launches"] = take_launches(k1, k2, "merged build")
+        out["build_s"] = dt
+        out["build_points_per_s"] = MERGED_N / dt
+        merged_invariants(ti, "[merged]")
+        log(f"[merged] build_merged {MERGED_SHARDS} shards overlap 2 codes=sq: {dt:.1f}s "
+            f"({MERGED_N / dt:.0f} points/s); invariants held")
+        if min(out["build_launches"].values()) < 1:
+            raise RuntimeError(f"[merged] a kernel never launched in the build: "
+                               f"{out['build_launches']}")
+        ti.store = HostVectorStore.from_fbin(path, cache_rows=1 << 20)
+        if not ti.store.is_native:
+            raise RuntimeError("[merged] the store is not the native reader")
+        ti.attach_router(65536)
+        for l in MERGED_L:
+            for rl in MERGED_RL:
+                kw = dict(l_search=l, beam_width=4, batch_size=1024, rerank_l=rl,
+                          router_starts=4, row_wire=np.float16)
+                ti.search_batched(q, K, **kw)                          # warm-up
+                (d, ids, st), dt = _timed(torch, device, lambda: ti.search_batched(q, K, **kw))
+                if ids.shape != (MERGED_NQ, K) or not np.isfinite(d[ids >= 0]).all():
+                    raise RuntimeError(f"[merged] L={l} rl={rl}: malformed result")
+                row = {"l": l, "rl": rl, "recall": knn_recall(ids, gt, K),
+                       "qps": MERGED_NQ / dt, "mean_hops": float(st.hops.mean())}
+                out["rows"].append(row)
+                r04 = R04_DEEP20M.get((l, rl))
+                log(f"[merged] L={l} rerank_l={rl} W=4 batch 1024 router_starts=4 float16 "
+                    f"rows: recall@{K}={row['recall']:.4f} qps={row['qps']:.0f} mean_hops="
+                    f"{row['mean_hops']:.2f}"
+                    + (f" (JAX package at 20M: {r04})" if r04 else ""))
+            _, ids_l, _ = ti.search_batched(q, K, l_search=l, beam_width=4, batch_size=1024,
+                                            rerank_l=l, router_starts=4)
+            out["rows"].append({"l": l, "rl": l, "recall": knn_recall(ids_l, gt, K),
+                                "qps": None})
+            log(f"[merged] L={l}: recall@{K} of the full L list {out['rows'][-1]['recall']:.4f}")
+        out["search_launches"] = take_launches(k1, k2, "merged search")
+        best = max(r["recall"] for r in out["rows"] if r["qps"])
+        if best < TARGET_RECALL:
+            raise RuntimeError(f"[merged] no point reached recall {TARGET_RECALL} ({best:.4f})")
+
+        kw = dict(l_search=80, beam_width=4, batch_size=1024, rerank_l=16, router_starts=4)
+        _, want, _ = ti.search_batched(q, K, **kw)
+        rec = os.path.join(tmp, "tiered")
+        _, save_s = _timed(torch, device, lambda: ti.save(rec, copy_vectors=False))
+        nbytes = sum(os.path.getsize(os.path.join(dp_, f))
+                     for dp_, _, fs in os.walk(rec) for f in fs)
+        back, load_s = _timed(torch, device, lambda: TieredIndex.load(rec, device=device))
+        back.attach_router(65536)
+        _, got, _ = back.search_batched(q, K, **kw)
+        same = bool(np.array_equal(got, want))
+        out["save_load"] = {"bytes": nbytes, "save_s": save_s, "load_s": load_s,
+                            "identical": same}
+        log(f"[merged] save (copy_vectors=False) {nbytes / 1e9:.3f} GB in {save_s:.2f}s "
+            f"({nbytes / save_s / 1e9:.2f} GB/s), TieredIndex.load {load_s:.2f}s "
+            f"({nbytes / load_s / 1e9:.2f} GB/s): ids identical {same}")
+        if not same:
+            raise RuntimeError("[merged] the reloaded tier returns other ids")
+    finally:
+        shutil.rmtree(tmp)
+    return out
+
+
+def save_load_wiki(idx, qd) -> dict:
+    """Save the 100k x 768 index (packed, sq and pq attached), load it, and
+    hold ids and distances identical in full, packed, sq and pq mode on
+    1024 queries.  Returns the bytes and the GB/s of each way."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from diskann_tpu_torch import GraphIndex
+
+    device = qd.device
+    q = qd[:1024]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_wiki_")
+    try:
+        path = os.path.join(tmp, "wiki")
+        _, save_s = _timed(torch, device, lambda: idx.save(path))
+        nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        back, load_s = _timed(torch, device, lambda: GraphIndex.load(
+            path, device=device, insert_batch_size=idx.insert_batch_size,
+            search_batch_size=idx.search_batch_size))
+    finally:
+        shutil.rmtree(tmp)
+    for mode in ("full", "packed", "sq", "pq"):
+        kw = dict(WIKI_SEARCH, mode=mode)
+        d0, i0, s0 = idx.search(q, 100, **kw)
+        d1, i1, s1 = back.search(q, 100, **kw)
+        if not (np.array_equal(i0, i1) and np.array_equal(d0, d1)
+                and np.array_equal(s0.hops, s1.hops)):
+            raise RuntimeError(f"[wiki] {mode}: the reloaded index returns other results")
+    out = {"bytes": nbytes, "save_s": save_s, "load_s": load_s,
+           "save_gb_per_s": nbytes / save_s / 1e9, "load_gb_per_s": nbytes / load_s / 1e9}
+    log(f"[wiki] save {nbytes / 1e9:.3f} GB in {save_s:.2f}s ({out['save_gb_per_s']:.2f} GB/s), "
+        f"GraphIndex.load {load_s:.2f}s ({out['load_gb_per_s']:.2f} GB/s): ids, distances and "
+        f"hops identical in full, packed, sq and pq mode (1024 queries, k=100)")
+    return out
+
+
 def wiki_data(n: int = WIKI_N, nq: int = WIKI_NQ, seed: int = 42):
     """`scripts/bench_wiki100k.py`'s embeddings, drawn with numpy: 1024
     clusters in 64 latent dimensions (noise 0.35), a random lift to 768
@@ -1213,6 +1608,7 @@ def run_wiki(device, k1, *, n: int = WIKI_N, nq: int = WIKI_NQ,
                                f"< {min_recall100}")
     if out["k1_launches"] < 1:
         raise RuntimeError("[wiki] K1 never launched on the packed search")
+    out["save_load"] = save_load_wiki(idx, qd)
     if device.type == "cuda":
         out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
     return out
@@ -1410,6 +1806,8 @@ def main(argv=None) -> int:
     k1_err = check_fatrow_expand(torch, device)
     k2_err = check_block_patch(torch, device)
     check_small_input(torch, device)
+    check_small_tiered(torch, device)
+    torch.cuda.empty_cache()
 
     torch.cuda.reset_peak_memory_stats(device)
     k1.launches = 0
@@ -1441,6 +1839,9 @@ def main(argv=None) -> int:
     phase_launches["quant"] = take_launches(k1, k2, "quant")
     modes_out = run_modes(idx, qd, k1)
     phase_launches["modes"] = take_launches(k1, k2, "modes")
+    # the tiered search walks the packed table (K1) and writes nothing
+    tiered = run_tiered(idx, qd, gt, filt_gt["cat0"], modes_out["range"]["radius"], k1)
+    phase_launches["tiered"] = take_launches(k1, k2, "tiered")
     del idx, qd
     torch.cuda.empty_cache()
 
@@ -1468,6 +1869,12 @@ def main(argv=None) -> int:
     take_launches(k1, k2)
     wiki = run_wiki(device, k1)
     phase_launches["wiki"] = take_launches(k1, k2, "wiki")
+    torch.cuda.empty_cache()
+    # the merged build runs both kernels in every shard's packed build; its
+    # sq search walks no packed table
+    merged = run_merged(device, k1, k2)
+    phase_launches["merged_build"] = merged["build_launches"]
+    phase_launches["merged_search"] = merged["search_launches"]
 
     k1t, k2t = times["k1_rp84_dp128"], times["k2_int32"]
     kernels = [
@@ -1507,6 +1914,8 @@ def main(argv=None) -> int:
     summary["quant"] = quant
     summary["modes"] = modes_out
     summary["wiki"] = wiki
+    summary["tiered"] = tiered
+    summary["merged"] = merged
     log("[summary] " + json.dumps(summary))
     print(json.dumps({"kernels": kernels}))
     print(smi)

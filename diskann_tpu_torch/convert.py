@@ -82,6 +82,8 @@ def graph_index_from_arrays(
     sq: dict | None = None,
     minmax: dict | None = None,
     spherical: dict | None = None,
+    cached_start=None,
+    hbm_vectors_dropped: bool = False,
     device=None,
     **index_kwargs,
 ) -> GraphIndex:
@@ -99,7 +101,10 @@ def graph_index_from_arrays(
     centred int8 codes), ``"bias2"``, ``"aux"``; minmax ``{"codes",
     "lo", "step", "aux"}``; spherical ``{"rotation", "n_bits", "words",
     "norms", "cscale"}``; every code table has capacity rows.
-    index_kwargs go to `GraphIndex` (batch sizes, backedge cap).  The
+    cached_start: the pinned start point ([S] int array) or None;
+    hbm_vectors_dropped: the graph's vectors were dropped from the device
+    (``graph["vectors"]`` is then the [1, d] placeholder), as in a tiered
+    index.  index_kwargs go to `GraphIndex` (batch sizes, backedge cap).  The
     index goes on ``device``, by default the CUDA card."""
     device = default_device(device)
     cfg = dict(config)
@@ -161,6 +166,9 @@ def graph_index_from_arrays(
     idx.n = int(n)
     idx.n_deleted = int(n_deleted)
     idx.free_slots = [int(i) for i in free_slots]
+    if cached_start is not None:
+        idx._cached_start = _tensor(cached_start, torch.int32, device)
+    idx._hbm_vectors_dropped = bool(hbm_vectors_dropped)
     return idx
 
 
@@ -188,7 +196,10 @@ def index_arrays(idx: GraphIndex) -> dict:
                             n_bits=idx.sq.n_bits, bias2=np_(idx.sq_bias2))
     if idx.sph is not None:
         attach["spherical"].update(rotation=np_(idx.sph.rotation), n_bits=int(idx.sph.n_bits))
+    start = idx._cached_start
     return dict(config=dataclasses.asdict(idx.config),
                 graph={f: np_(getattr(idx.state, f)) for f in idx.state._fields},
                 packed=packed, n=idx.n, n_deleted=idx.n_deleted,
-                free_slots=list(idx.free_slots), labels=labels, **attach)
+                free_slots=list(idx.free_slots), labels=labels,
+                cached_start=None if start is None else np_(start),
+                hbm_vectors_dropped=idx._hbm_vectors_dropped, **attach)

@@ -261,6 +261,9 @@ def inplace_delete(index, ids, *, method: str = "scan", k_value: int = 16,
         raise ValueError(f"unknown delete method {method!r}")
     if repair not in REPAIRS:
         raise ValueError(f"unknown delete repair {repair!r}")
+    if method == "visited_topk" and index._hbm_vectors_dropped:
+        # raised before anything is marked, where the reference marks first
+        raise ValueError("visited_topk needs the full vectors on the device")
     if patch_batch <= 0:
         patch_batch = 4096 if repair == "fill" else 1024
     st = index.state

@@ -28,6 +28,7 @@ so new rows score as code 0 until the attachment is made again.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -48,12 +49,13 @@ from diskann_tpu_torch.graph.scorers import (
 from diskann_tpu_torch.graph.search import (
     beam_search, beam_search_scored, grow_resume_state, search_geometry,
 )
+from diskann_tpu_torch.io_.record import load_record, save_record
 from diskann_tpu_torch.ops.distance import Metric, distance_to_set, squared_norms
 from diskann_tpu_torch.ops.topk import sort_with
 from diskann_tpu_torch.quant.minmax import MinMaxQuantizer
-from diskann_tpu_torch.quant.pq import train_pq
-from diskann_tpu_torch.quant.scalar import train_scalar
-from diskann_tpu_torch.quant.spherical import train_spherical
+from diskann_tpu_torch.quant.pq import PQ, train_pq
+from diskann_tpu_torch.quant.scalar import ScalarQuantizer, train_scalar
+from diskann_tpu_torch.quant.spherical import SphericalQuantizer, train_spherical
 
 
 # fat rows rebuilt per refresh_rows call in attach_packed: bounds the
@@ -241,6 +243,11 @@ class GraphIndex:
         self._router_ids: torch.Tensor | None = None
         self._router_rows_cache: tuple | None = None
         self._pred_count_cache: dict = {}
+        # a pinned start point (`TieredIndex.build_from_host`, `build_merged`)
+        # wins over the strategy's; once the full vectors are dropped from
+        # the device, only the codes serve traversal and routing
+        self._cached_start: torch.Tensor | None = None
+        self._hbm_vectors_dropped = False
         # quantized attachments (`attach_*`); code tables have capacity rows
         self.pq = self.pq_codes = None
         self.sq = self.sq_codes = self.sq_bias2 = self.sq_aux = None
@@ -335,12 +342,17 @@ class GraphIndex:
         again after every insert and delete, like the medoid."""
         if strategy not in _START_STRATEGIES:
             raise ValueError(f"unknown start strategy {strategy!r}")
+        if strategy == "random_vectors" and self._hbm_vectors_dropped:
+            raise ValueError("random_vectors needs the full vectors on the device")
         self._start_strategy = (strategy, k, seed)
         self._invalidate_start()
 
     def _start(self) -> torch.Tensor:
-        """The start points of the chosen strategy, [S] int32 ([-1] while
-        the index is empty), cached until the next mutation."""
+        """The pinned start point if there is one, else the start points of
+        the chosen strategy, [S] int32 ([-1] while the index is empty),
+        cached until the next mutation."""
+        if self._cached_start is not None:
+            return self._cached_start
         if self.n_live <= 0:
             return torch.full((1,), -1, dtype=torch.int32, device=self.device)
         if self._auto_start is None:
@@ -518,6 +530,19 @@ class GraphIndex:
         self.sph_cscale = torch.zeros(cap, device=self.device)
         self.sph_cscale[:n] = pc.cscale
 
+    def drop_vectors(self) -> None:
+        """Pin the start point, then free the full-precision vectors on the
+        device (a [1, d] placeholder stays): the tiered index's graph,
+        whose walks read only the codes and whose full rows live on the
+        host.  Searches that rerank on the device need the vectors."""
+        self._cached_start = self._start()
+        self._router_rows_cache = None
+        self.state = self.state._replace(
+            vectors=torch.zeros((1, self.dim), device=self.device),
+            sq_norms=torch.zeros((1,), device=self.device),
+        )
+        self._hbm_vectors_dropped = True
+
     def _scorer_for_mode(self, mode: str):
         """(ScorerDef, scorer data, expand_r) of a search mode: the scorer
         the walk of that mode runs over."""
@@ -555,12 +580,15 @@ class GraphIndex:
         q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
         return _round_queries(q[None] if q.dim() == 1 else q, query_dtype)
 
-    def _router_ids_live(self) -> torch.Tensor | None:
-        """The sampled live-id router set (None when the router is off or
-        the index is too small)."""
+    def _router_ids_live(self, mode: str) -> torch.Tensor | None:
+        """The sampled live-id router set (None when the router is off, the
+        index is too small, or a pinned start serves a walk other than the
+        packed one)."""
         cfg = self.config
         size = min(cfg.router_size, self.n_live // 4)
         if cfg.router_size <= 0 or size < 64:
+            return None
+        if self._cached_start is not None and mode != "packed":
             return None
         if self._router_ids is None:
             valid = self.state.valid[: self.n].cpu().numpy()
@@ -588,6 +616,11 @@ class GraphIndex:
             rows = (self.state.vectors[rid.long()], self.state.sq_norms[rid.long()])
         self._router_rows_cache = (src, rid, rows)
         return rows
+
+    def _packed_router(self, mode: str) -> bool:
+        """Whether the router of ``mode`` scores the packed self-codes (the
+        packed walk, or any walk once the full vectors are dropped)."""
+        return mode == "packed" or self._hbm_vectors_dropped
 
     def _n_start(self, router_ids, router_starts) -> int:
         """Router entry points per query (None/0 = the config default),
@@ -632,9 +665,9 @@ class GraphIndex:
         l = l_search if l_search is not None else max(k, self.config.l_build)
         l = max(l, k)
         w = beam_width if beam_width is not None else self.config.beam_width
-        router_ids = self._router_ids_live()
+        router_ids = self._router_ids_live(mode)
         n_start = self._n_start(router_ids, router_starts)
-        router_rows = (self._router_rows(mode == "packed")
+        router_rows = (self._router_rows(self._packed_router(mode))
                        if router_ids is not None else None)
         bs = self.search_batch_size
         if mode == "full":
@@ -649,6 +682,17 @@ class GraphIndex:
         fd, fi, cmps, hops = (torch.cat(t).cpu().numpy() for t in zip(*parts))
         return fd, fi, _stats(cmps, hops, fi)
 
+    def _entry_points(self, q, mode, router_ids, router_rows, n_start):
+        """Each query's walk entry points: its ``n_start`` nearest router
+        ids (`_router_topk_packed_pre` or `_router_topk_full_pre`), or the
+        start point when there is no router."""
+        if router_ids is None:
+            return self._start()
+        if self._packed_router(mode):
+            return _router_topk_packed_pre(*router_rows, router_ids, q, self.metric,
+                                           n_start, compute=self.router_compute)
+        return _router_topk_full_pre(*router_rows, router_ids, q, self.metric, n_start)
+
     def _quant_search_batch(self, q, mode, scorer, k, l, w, rl, mh, router_ids,
                             router_rows, n_start):
         """One query batch of a compressed walk: router entry points, the
@@ -656,13 +700,7 @@ class GraphIndex:
         `rl` candidates."""
         cfg = self.config
         metric = cfg.metric
-        if router_ids is None:
-            st = self._start()
-        elif mode == "packed":
-            st = _router_topk_packed_pre(*router_rows, router_ids, q, metric,
-                                         n_start, compute=self.router_compute)
-        else:
-            st = _router_topk_full_pre(*router_rows, router_ids, q, metric, n_start)
+        st = self._entry_points(q, mode, router_ids, router_rows, n_start)
         sdef, sdata, expand_r = scorer
         res = beam_search_scored(
             sdef, sdata, self.state.adjacency, st, q,
@@ -680,8 +718,7 @@ class GraphIndex:
         """One query batch of the full-precision walk (ring dedup, sized by
         `GraphConfig.history_capacity`)."""
         cfg = self.config
-        st = (_router_topk_full_pre(*router_rows, router_ids, q, cfg.metric, n_start)
-              if router_ids is not None else self._start())
+        st = self._entry_points(q, "full", router_ids, router_rows, n_start)
         res = beam_search(
             self.state.vectors, self.state.sq_norms, self.state.adjacency, st, q,
             metric=cfg.metric, l_search=l, beam_width=w,
@@ -769,7 +806,8 @@ class GraphIndex:
 
         # ---- selective predicates: the exact posting-list scan ----
         cnt = None
-        if method in ("inline", "prefilter"):
+        # without the full vectors on the device there is no scan to route to
+        if method in ("inline", "prefilter") and not self._hbm_vectors_dropped:
             cnt = self._predicate_count(predicate, accept_fn)
             cap = self.state.capacity
             if scan_threshold is not None:
@@ -830,7 +868,7 @@ class GraphIndex:
                 l = min(l * scale, 1024)
                 rl = min(rl * scale, l)
                 mh = min(mh * scale, 48)
-        router_ids = self._router_ids_live()
+        router_ids = self._router_ids_live("packed")
         n_start = self._n_start(router_ids, None)
         router_rows = self._router_rows(True) if router_ids is not None else None
         bs = self.search_batch_size
@@ -860,11 +898,7 @@ class GraphIndex:
         """One query batch of the filtered walk: router entry points, packed
         hops (K1) with the inline filter, rerank of the top `rl` matches."""
         metric = self.config.metric
-        if router_ids is not None:
-            st = _router_topk_packed_pre(*router_rows, router_ids, q, metric,
-                                         n_start, compute=self.router_compute)
-        else:
-            st = self._start()
+        st = self._entry_points(q, "packed", router_ids, router_rows, n_start)
         sdef, sdata = packed_scorer(self.packed, metric)
         res = beam_search_scored(
             sdef, sdata, self.state.adjacency, st, q,
@@ -964,3 +998,169 @@ class GraphIndex:
             for off in range(0, stale.shape[0], _CONSOLIDATE_ROWS):
                 packed_mod.refresh_rows(self.packed, st.adjacency,
                                         stale[off:off + _CONSOLIDATE_ROWS])
+
+    # -------------------------------------------------------------- save/load
+    def save(self, path: str) -> None:
+        """Persist the index with every attachment (packed layout, PQ, SQ,
+        spherical and MinMax codes, labels, the pinned start) as the JAX
+        package's record (`io_/record.py`): ``manifest.json`` plus one raw
+        ``.bin`` file per array, rows below ``n`` only, uint32 words where
+        the reference holds uint32.  A record either package writes loads
+        in the other.
+
+        Beyond the reference's record, which its loader ignores: every
+        `GraphConfig` field (the reference writes eight), the start
+        strategy, and the start point in use as ``auto_start`` (the
+        reference's loader derives the medoid again from all rows, which
+        can differ from the one a build took at its second batch)."""
+        n = self.n
+        host = lambda t: t.cpu().numpy()  # noqa: E731
+        config = dataclasses.asdict(self.config)
+        config["metric"] = self.config.metric.value
+        meta = {
+            "n": n, "dim": self.dim, "dtype": "float32",
+            "n_deleted": self.n_deleted,
+            "free_slots": [int(i) for i in self.free_slots],
+            "hbm_vectors_dropped": self._hbm_vectors_dropped,
+            "config": config,
+            "start_strategy": list(self._start_strategy),
+        }
+        st = self.state
+        arrays = {"adjacency": host(st.adjacency[:n]), "degrees": host(st.degrees[:n]),
+                  "valid": host(st.valid[:n])}
+        if not self._hbm_vectors_dropped:
+            # the norms are kept, not recomputed: "identical results after
+            # a reload" is the contract
+            arrays["vectors"] = host(st.vectors[:n])
+            arrays["sq_norms"] = host(st.sq_norms[:n])
+        if self._cached_start is not None:
+            arrays["cached_start"] = host(self._cached_start)
+        elif not self._hbm_vectors_dropped and self.n_live > 0:
+            arrays["auto_start"] = host(self._start())
+        if self.packed is not None:
+            p = self.packed
+            meta["packed"] = {"r_pack": int(p.r_pack), "dp": int(p.dp)}
+            arrays.update(packed_proj=host(p.proj), packed_pscale=host(p.pscale),
+                          packed_pbias2=host(p.pbias2),
+                          packed_self_codes=host(p.self_codes[:n]),
+                          packed_self_aux=host(p.self_aux[:n]),
+                          packed_rows=host(p.rows[: n * p.nwr]))
+        if self.pq is not None:
+            arrays.update(pq_pivots=host(self.pq.pivots), pq_codes=host(self.pq_codes[:n]))
+        if self.sq is not None:
+            meta["sq"] = {"n_bits": int(self.sq.n_bits)}
+            arrays.update(sq_scale=host(self.sq.scale), sq_bias=host(self.sq.bias),
+                          sq_codes=host(self.sq_codes[:n]), sq_bias2=host(self.sq_bias2),
+                          sq_aux=host(self.sq_aux[:n]))
+        if self.sph is not None:
+            meta["spherical"] = {"n_bits": int(self.sph.n_bits)}
+            arrays.update(sph_rotation=host(self.sph.rotation),
+                          sph_words=host(self.sph_words[:n]).view(np.uint32),
+                          sph_norms=host(self.sph_norms[:n]),
+                          sph_cscale=host(self.sph_cscale[:n]))
+        if self.mm is not None:
+            meta["minmax"] = {"n_bits": int(self.mm.n_bits)}
+            arrays.update(mm_codes=host(self.mm_codes[:n]), mm_lo=host(self.mm_lo[:n]),
+                          mm_step=host(self.mm_step[:n]), mm_aux=host(self.mm_aux[:n]))
+        if self.labels is not None:
+            meta["labels"] = {"vocab": self.labels.vocab}
+            arrays["labels_bits"] = host(self.labels.bits[:n]).view(np.uint32)
+        save_record(path, kind="graph_index", meta=meta, arrays=arrays)
+
+    @classmethod
+    def load(cls, path: str, device=None, **kwargs) -> "GraphIndex":
+        """Load a record written by `save` (of either package) onto
+        ``device`` (the CUDA card by default).  Capacity is max(n, 1024),
+        rounded up to the insert batch, so later inserts grow the tables
+        as the reference's do; every `GraphConfig` field present is
+        restored (the reference's loader reads eight).  kwargs go to
+        `GraphIndex` (batch sizes, backedge cap).  Only float32 vectors are
+        ported: another dtype raises `NotImplementedError`."""
+        manifest, arrays = load_record(path)
+        meta = manifest["meta"]
+        if meta.get("dtype", "float32") != "float32":
+            raise NotImplementedError(
+                f"vector dtype {meta['dtype']!r}: the port holds float32 vectors only")
+        names = {f.name for f in dataclasses.fields(GraphConfig)}
+        c = {k: v for k, v in meta["config"].items() if k in names}
+        c["metric"] = Metric(c["metric"])
+        n = int(meta["n"])
+        idx = cls(int(meta["dim"]), GraphConfig(**c), capacity=max(n, 1024),
+                  device=device, **kwargs)
+        idx.n = n
+        idx.n_deleted = int(meta.get("n_deleted", 0))
+        idx.free_slots = [int(i) for i in meta.get("free_slots", [])]
+        if "start_strategy" in meta:
+            strat, k, seed = meta["start_strategy"]
+            idx._start_strategy = (strat, int(k), int(seed))
+        dev = idx.device
+        cap = idx.state.capacity
+        host = lambda name: torch.from_numpy(np.ascontiguousarray(arrays[name]))  # noqa: E731
+
+        def table(shape, dtype, name, fill=0):
+            """A [cap, ...] device table: the record's rows below n, then
+            ``fill``."""
+            out = torch.full(shape, fill, dtype=dtype, device=dev)
+            out[:n].copy_(host(name).view(dtype))
+            return out
+
+        st = idx.state
+        st.valid[:n].copy_(host("valid"))
+        st.adjacency[:n].copy_(host("adjacency"))
+        st.degrees[:n].copy_(host("degrees"))
+        if meta.get("hbm_vectors_dropped", False):
+            idx._hbm_vectors_dropped = True
+            idx.state = st._replace(vectors=torch.zeros((1, idx.dim), device=dev),
+                                    sq_norms=torch.zeros((1,), device=dev))
+        else:
+            st.vectors[:n].copy_(host("vectors"))
+            if "sq_norms" in arrays:
+                st.sq_norms[:n].copy_(host("sq_norms"))
+            else:
+                st.sq_norms[:n] = squared_norms(st.vectors[:n])
+            st.vec_sum.copy_(torch.where(st.valid[:n, None], st.vectors[:n], 0.0).sum(0))
+        if "cached_start" in arrays:
+            idx._cached_start = host("cached_start").to(dev)
+        elif "auto_start" in arrays:
+            idx._auto_start = host("auto_start").to(dev)
+
+        if "packed" in meta:
+            rp, dp = int(meta["packed"]["r_pack"]), int(meta["packed"]["dp"])
+            rows = packed_mod._empty_rows(cap + 1, rp, dp, device=dev)
+            rows[: arrays["packed_rows"].shape[0]].copy_(host("packed_rows"))
+            idx.packed = packed_mod.PackedState(
+                proj=host("packed_proj").to(dev), pscale=host("packed_pscale").to(dev),
+                pbias2=host("packed_pbias2").to(dev),
+                self_codes=table((cap, dp), torch.int8, "packed_self_codes"),
+                self_aux=table((cap,), torch.float32, "packed_self_aux"),
+                rows=rows, r_pack=rp)
+        if "pq_pivots" in arrays:
+            idx.pq = PQ(pivots=host("pq_pivots").to(dev), dim=idx.dim)
+            idx.pq_codes = table((cap, idx.pq.n_chunks), torch.uint8, "pq_codes")
+        if "sq" in meta:
+            idx.sq = ScalarQuantizer(scale=host("sq_scale").to(dev),
+                                     bias=host("sq_bias").to(dev),
+                                     n_bits=int(meta["sq"]["n_bits"]))
+            idx.sq_codes = table((cap, idx.dim), torch.int8, "sq_codes")
+            idx.sq_bias2 = host("sq_bias2").to(dev)
+            idx.sq_aux = table((cap,), torch.float32, "sq_aux")
+        if "spherical" in meta:
+            idx.sph = SphericalQuantizer(rotation=host("sph_rotation").to(dev),
+                                         n_bits=int(meta["spherical"]["n_bits"]))
+            wd = arrays["sph_words"].shape[1]
+            arrays["sph_words"] = arrays["sph_words"].view(np.int32)
+            idx.sph_words = table((cap, wd), torch.int32, "sph_words")
+            idx.sph_norms = table((cap,), torch.float32, "sph_norms")
+            idx.sph_cscale = table((cap,), torch.float32, "sph_cscale")
+        if "minmax" in meta:
+            idx.mm = MinMaxQuantizer(n_bits=int(meta["minmax"]["n_bits"]))
+            idx.mm_codes = table((cap, idx.dim), torch.int8, "mm_codes")
+            idx.mm_lo = table((cap,), torch.float32, "mm_lo")
+            idx.mm_step = table((cap,), torch.float32, "mm_step", fill=1.0)
+            idx.mm_aux = table((cap,), torch.float32, "mm_aux")
+        if "labels" in meta:
+            arrays["labels_bits"] = arrays["labels_bits"].view(np.int32)
+            nw = arrays["labels_bits"].shape[1]
+            idx.labels = LabelSet(cap, meta["labels"]["vocab"], nw, device=dev)
+            idx.labels.bits = table((cap, nw), torch.int32, "labels_bits")
+        return idx

@@ -45,10 +45,15 @@ def range_search(index, queries, radius: float, *, l_init: int | None = None,
     ``l_max`` window is incomplete.
 
     mode="full" with ``resume`` grows and resumes one scratch per round;
-    any other mode (or ``resume=False``) runs a fresh search per round."""
-    q = index._queries(queries)
+    any other mode (or ``resume=False``) runs a fresh search per round, and
+    so does an index without the full vectors on the device: a
+    `TieredIndex` (whose search reranks each round's candidates exactly
+    from host rows, and reads mode "full" as its own traversal codes) or a
+    graph whose vectors were dropped."""
+    graph = hasattr(index, "_scorer_for_mode")
+    q = index._queries(queries) if graph else queries
     l = l_init or max(32, index.config.l_build)
-    if resume and mode == "full":
+    if resume and mode == "full" and graph and not index._hbm_vectors_dropped:
         d, ids = _range_rounds_resume(index, q, radius, l, l_max)
     else:
         d, ids = _range_rounds_restart(index, q, radius, l, l_max, mode)

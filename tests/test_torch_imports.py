@@ -38,6 +38,10 @@ def test_the_scan_sees_the_package():
     for mod in ("__init__", "bits", "binary", "transforms", "kmeans", "pq", "scalar",
                 "minmax", "spherical"):
         assert f"diskann_tpu_torch/quant/{mod}.py" in FILES
+    for path in ("io_/__init__.py", "io_/fbin.py", "io_/record.py", "native/__init__.py",
+                 "tiered/__init__.py", "tiered/index.py", "tiered/stores.py",
+                 "tiered/merged_build.py", "parallel/__init__.py", "parallel/partition.py"):
+        assert f"diskann_tpu_torch/{path}" in FILES
     roots = set(_imported_roots(ast.parse("import jax.numpy\nfrom diskann_tpu.x import y")))
     assert roots == {"jax", "diskann_tpu"}
 

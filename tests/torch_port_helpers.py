@@ -48,9 +48,13 @@ def jax_index_arrays(idx) -> dict:
     labels = None
     if getattr(idx, "labels", None) is not None:
         labels = {"vocab": dict(idx.labels.vocab), "bits": np.asarray(idx.labels.bits)}
+    start = getattr(idx, "_cached_start", None)
     return dict(config=cfg, graph=graph, packed=packed, n=idx.n,
                 n_deleted=idx.n_deleted, free_slots=list(idx.free_slots),
-                labels=labels, device=CPU, **jax_attachments(idx))
+                labels=labels, device=CPU,
+                cached_start=None if start is None else np.asarray(start),
+                hbm_vectors_dropped=getattr(idx, "_hbm_vectors_dropped", False),
+                **jax_attachments(idx))
 
 
 def jax_attachments(idx) -> dict:
