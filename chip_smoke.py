@@ -41,9 +41,9 @@ Phases, each printing one line:
    its least time on the card (bytes over 3.35 TB/s) and, for K2, the one
    library call that does the same (`index_copy_`);
 9. stream: the JAX package's 1M streaming setting (`BENCH_STREAM1M_r05`):
-   a packed index over 1M of 1.5M clustered points (capacity 1,040,000),
-   then 10 cycles of delete 50,000 (scan, fill, max_dead=8) + insert
-   50,000 + a recall checkpoint (L=90, packed, float16 queries,
+   a packed index over 1M of 1.3M clustered points (capacity 1,040,000),
+   then 6 cycles of delete 50,000 (scan, fill,
+   max_dead=8) + insert 50,000 + a recall checkpoint (L=90, packed, float16 queries,
    max_hops=9) through `RunbookExecutor`; fails unless every checkpoint
    reaches recall@10 >= 0.92 and, after every delete and cycle, no deleted
    id is returned, no live row refers to a deleted id, the packed id words
@@ -86,38 +86,73 @@ Phases, each printing one line:
    zipf labels as attributes, then a `VectorSetServer` on 127.0.0.1 driven
    by a `VectorSetClient`: PING, VLIST, VCARD, 1,000 VADDs, 1,024 VSIMs
    (recall@10 against the exact inner-product top-10: >= 0.999 on the flat
-   route, >= 0.95 on the graph), 256 VSIM FILTER "cat0", 100 VSIM ELE,
-   1,000 VREMs, VSETATTR / VGETATTR with a FILTER on the new label, VSCAN
-   of 5 pages x 10 for 16 queries, VQUANT sq and 1,024 VSIMs on the sq
+   route, >= 0.95 on the graph), 64 VSIM FILTER "cat0", 100 VSIM ELE,
+   250 VREMs, VSETATTR / VGETATTR with a FILTER on the new label, VSCAN
+   of 5 pages x 10 for 16 queries, VQUANT sq and 128 VSIMs on the sq
    walk (recall >= 0.95); the wall latency p50 / p99 of every command
    kind;
-16. the merged build: `scripts/bench_deep20m.py`'s recipe cut to 2M points
-   in 4 shards (clustered, 32768 clusters, exact top-10), `build_merged(R=40,
+16. the merged build: `scripts/bench_deep20m.py`'s recipe cut to 1.5M points
+   in 3 shards (clustered, 32768 clusters, exact top-10), `build_merged(R=40,
    L=64, overlap 2, dp=32, codes="sq")`, the native reader and a 65536-row
    router, a sweep of L = 40, 80, 160 x rerank_l = 16, 64 (float16 rows),
    then save and `TieredIndex.load`; fails unless some point reaches
    recall@10 >= 0.95, both kernels launched in the build, every merge
-   invariant holds and the reload returns identical ids.
+   invariant holds and the reload returns identical ids;
+17. [dtypes] the main path's data stored as float16: the packed build with
+   the main path's settings, attach_packed(dp=128) and its L sweep against
+   the float32 groundtruth (recall@10 within 0.005 of the float32 main
+   path at every L), the vectors' device bytes (half of float32's) and a
+   save / load round trip (identical ids); a uint8 set in the shape of
+   BigANN's SIFT (the same data mapped to 0..255, its own exact top-10),
+   the same build and a sweep to L=100 that must reach recall@10 >= 0.95;
+   both builds must launch K1 and K2.  Then bfloat16 and int8 at 20k,
+   built on the card and carried to the CPU in their own dtype: identical
+   ids on >= 0.999 of entries (full precision; the packed walk >= 0.99),
+   and a bfloat16 save / load with identical ids;
+18. [bench] `python -m diskann_tpu_torch.bench` in process on the card:
+   `list` (six families), `run` of every example job file and a flat job,
+   `check` of one result against itself under `example/tolerances.json`,
+   then `abgate` on the main path's 1M index (saved as phase 5 built it,
+   without its packed table, loaded through `--idx-cache` and re-attached
+   at dp=128): an A/A run and an A/B run of merge_trunc off against on, 3
+   reps a side, each rep bracketed by the bf16 probe; fails if a command
+   fails, a family is missing or the abgate's packed walk launches no K1;
+19. [sharded] `ShardedGraphIndex` on the one card: the main path's 1M x 128
+   data in 4 shards by the k-means partition with overlap 2, inserts of
+   8192 (R=64, L=100, alpha=1.2), attach_packed(dp=128), full and packed
+   search at L = 16..100, the filtered "cat0" search, a delete of 50,000
+   external ids, save / load, and `sharded_flat_search` against
+   `FlatIndex`; fails unless the packed walk reaches recall@10 >= 0.95
+   with K1 launched, K2 launches in the delete, no deleted id and no
+   duplicate copy comes back, the reload and the flat search give
+   identical ids.  Then the JAX package's sharded scale,
+   `scripts/bench_sharded10m.py`'s bookkeeping at 10M x 32 over 8 shards:
+   a synthetic ring graph adopted on the card, insert 8192 with overlap 2,
+   delete 8192, re-insert 8192 (freed slots recycled), save and load
+   (identical ids), each time beside `SHARDED10M_r04.json`'s CPU-mesh
+   figures.
 
 Phase 4 also builds a packed index of 20k 8-d points (dp=8) and attaches
 dp=256 to 2k x 256-d data, each searched packed on the card and on its CPU
 copy (>= 99% identical ids).  Phases 12 and 14 also time `mode="auto"`:
 the flat route (`_flat_auto_search`: bf16 shortlist, float32 rerank)
 against the packed walk, at a batch of 8192 queries (best of 3) and one
-query at a time (median and p99 of 200 calls), on the 1M index, the 100k
+query at a time (median and p99 of 100 calls), on the 1M index, the 100k
 x 768 index and a 25k prefix of it (and the flat route alone on a 600k
 prefix of the 1M index); the flat route must reach recall@10
 >= 0.999, `search(mode="auto")` must take the route `FLAT_AUTO_CROSSOVER`
 implies, and after 1% of the 768-d index is deleted the flat route must
-return no deleted id.  Phase 8 also times K1 at the other packed widths.
+return no deleted id.  Phase 8 also times K1 at the other packed widths
+(100 launches each; the merged build's rp=64 / dp=32 on a table of one
+merged shard's rows).
 
 Phase 4 also trains every quantizer on the CPU copy of its small index,
 carries the trained state to the card and holds each quantized mode's
 ids card against CPU (>= 99% identical); and on a second 20k input builds
 a `TieredIndex` on the card, carries it to the CPU (>= 99% identical ids),
 saves it on the card and loads it on the CPU (identical ids), and runs a
-3-shard `build_merged` with codes "packed" and "sq" on both devices
-(invariants, recall@10 within 0.01).  Every temporary directory is
+3-shard `build_merged` of its first 10k points with codes "packed" and
+"sq" on both devices (invariants, recall@10 within 0.01).  Every temporary directory is
 removed, on failure too.
 
 Phase 6 also traces one filtered walk call with torch.profiler and splits
@@ -137,8 +172,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 K1_REPLACES = "diskann_tpu/ops/kernels/fatrow_expand.py:146"
@@ -156,7 +193,7 @@ FILTER_KW = dict(l_search=90, mode="packed", max_hops=16)
 FULL_NQ = 1024
 # the JAX package's 1M streaming setting (`BENCH_STREAM1M_r05.json`)
 STREAM_N = 1_000_000
-STREAM_CYCLES = 10
+STREAM_CYCLES = 6
 STREAM_FRAC = 0.05
 STREAM_NQ = 2048
 STREAM_CAP_MARGIN = 40_000
@@ -186,19 +223,24 @@ R04_WIKI = {"packed": (0.9999, 0.9993), "sq": (0.9999, 0.9993), "pq": None}
 TIERED_IO = (16, 32, 64, 100)
 TIERED_KW = dict(l_search=100, batch_size=4096, router_starts=4)
 # the merged build: `scripts/bench_deep20m.py`'s recipe cut from 20M points
-# in 24 shards to 2M in 4 (about 1M points per shard, against 1.67M)
-MERGED_N, MERGED_NQ, MERGED_SHARDS = 2_000_000, 1024, 4
+# in 24 shards to 1.5M in 3 (about 1M points per shard, against 1.67M;
+# fewer shards than 2M in 4 keep the smoke inside its time)
+MERGED_N, MERGED_NQ, MERGED_SHARDS = 1_500_000, 1024, 3
 MERGED_L, MERGED_RL = (40, 80, 160), (16, 64)
 # `BENCH_DEEP20M_r04.json` (20M, codes sq): recall@10 at (L, rerank_l)
 R04_DEEP20M = {(40, 16): 0.9739, (80, 16): 0.9922, (80, 64): 0.9924, (160, 16): 0.994,
                (160, 64): 0.9942}
 # K1 at the packed widths beyond the main path's (dp/4 divides 128):
-# (r_pack, dp)
-K1_WIDTHS = ((16, 4), (16, 8), (16, 16), (84, 256), (40, 512))
+# (r_pack, dp); the merged build's (R=40, dp=32) is timed on a table of
+# one merged shard's rows, the others on 2^17-node tables, each over
+# K1_WIDTH_REPS launches
+K1_MERGED = (64, 32)
+K1_WIDTHS = ((16, 4), (16, 8), (16, 16), (84, 256), (40, 512), K1_MERGED)
+K1_WIDTH_REPS = 100
 # mode="auto": the flat route against the graph walk at a batch of
 # AUTO_BATCH queries (best of 3) and AUTO_SINGLES single-query calls;
 # the flat route's recall@10 bar; the bracket point below the 768-d shape
-AUTO_BATCH, AUTO_SINGLES = 8192, 200
+AUTO_BATCH, AUTO_SINGLES = 8192, 100
 AUTO_MIN_RECALL = 0.999
 AUTO_BRACKET_N = 25_000
 # rows of the 1M x 128 index at the 768-d shape's element count (76.8M):
@@ -207,8 +249,27 @@ AUTO_ROWS_N = 600_000
 # the service over the wire at the 100k x 768 shape: elements by add_batch,
 # then VADDs, VSIMs, filtered VSIMs, VSIM ELEs, VREMs and VSCAN queries
 SVC_N, SVC_WIRE_ADDS = 99_000, 1_000
-SVC_NQ, SVC_FILTER_NQ, SVC_ELE_NQ, SVC_REMOVES, SVC_SCAN_NQ = 1024, 256, 100, 1_000, 16
+# (FILTERs, VREMs and the sq VSIMs cut from 256, 1,000 and 1,024 to keep
+# the smoke inside its time with the dtypes, bench and sharded phases: the
+# walks take 130-300 ms a request)
+SVC_NQ, SVC_FILTER_NQ, SVC_ELE_NQ, SVC_REMOVES, SVC_SCAN_NQ = 1024, 64, 100, 250, 16
+SVC_SQ_NQ = 128
 SVC_GRAPH_MIN_RECALL = 0.95
+# [dtypes]: float16 recall may stray this far from the float32 main path's
+# at each L; the uint8 sweep; card-vs-CPU identical-id share at 20k
+DTYPE_RECALL_GAP = 0.005
+DTYPE_UINT8_L = (16, 24, 40, 64, 100)
+DTYPE_SMALL_SHARE = 0.999
+# [bench]: the abgate's shared index size, its A side (B is the same with
+# merge_trunc on) and its reps per side
+BENCH_N, BENCH_SIDE, BENCH_REPS = 1_000_000, "l=24,mh=6,rl=12,mtrunc=0", 3
+# [sharded]: the main path's data over SHARD_S shards on the one card; the
+# JAX package's 10M x 32 bookkeeping scale over 8 shards
+SHARD_S, SHARD_L, SHARD_DELETE = 4, (16, 24, 40, 64, 100), 50_000
+SH10M_N, SH10M_D, SH10M_S, SH10M_R, SH10M_BATCH = 10_000_000, 32, 8, 16, 8192
+# `SHARDED10M_r04.json` (the JAX package on an 8-device CPU mesh), seconds
+SH10M_R04 = {"insert": 26.43, "delete": 63.88, "reinsert": 26.13, "save": 7.97,
+             "load": 19.75}
 # the H100 SXM's published peaks (NVIDIA data sheet): HBM bytes and dense
 # int8 operations per millisecond
 HBM_BYTES_PER_MS = 3.35e12 / 1e3
@@ -468,12 +529,10 @@ def run_main_path(n: int, device, *, search_batch: int = NQ):
     Returns (the measured figures, the index, the queries on the device,
     the exact top-10 ids); raises if no L reaches the recall target or a
     result is malformed."""
-    import numpy as np
     import torch
 
-    from diskann_tpu_torch import FlatIndex, GraphConfig, GraphIndex
+    from diskann_tpu_torch import FlatIndex, GraphIndex
     from diskann_tpu_torch.bench.harness import make_clustered
-    from diskann_tpu_torch.bench.recall import knn_recall
 
     out: dict = {"n": n, "nq": NQ}
     t0 = time.time()
@@ -494,10 +553,8 @@ def run_main_path(n: int, device, *, search_batch: int = NQ):
         raise RuntimeError("groundtruth scan returned malformed ids")
     log(f"[main] exact top-{K} groundtruth: {out['gt_s']:.1f}s")
 
-    cfg = GraphConfig(max_degree=64, l_build=100, alpha=1.2, beam_width=4,
-                      build_max_hops=12, max_occlusion_size=256)
     t0 = time.time()
-    idx = GraphIndex.build(xd, cfg, insert_batch_size=8192,
+    idx = GraphIndex.build(xd, main_config(), insert_batch_size=8192,
                            search_batch_size=search_batch, build_mode="packed",
                            packed_dp=64, build_backedge_src_cap=64)
     sync(torch, device)
@@ -524,30 +581,7 @@ def run_main_path(n: int, device, *, search_batch: int = NQ):
         f"{out['attach_s']:.1f}s")
 
     idx.router_compute = "bf16"
-    sweep = []
-    for l in L_SWEEP:
-        kw = dict(l_search=l, beam_width=4, mode="packed", rerank_l=12, max_hops=6)
-        dists, ids, stats = idx.search(qd, K, **kw)       # warm-up
-        dts = []
-        for _ in range(2):
-            sync(torch, device)
-            t0 = time.time()
-            dists, ids, stats = idx.search(qd, K, **kw)
-            sync(torch, device)
-            dts.append(time.time() - t0)
-        if ids.shape != (NQ, K) or not np.isfinite(dists[ids >= 0]).all():
-            raise RuntimeError(f"L={l}: malformed search result")
-        r = knn_recall(ids, gt, K)
-        pt = {"l": l, "recall": r, "qps": NQ / min(dts),
-              "qps_reps": [NQ / t for t in dts],
-              "mean_hops": float(stats.hops.mean()),
-              "mean_cmps": float(stats.cmps.mean())}
-        sweep.append(pt)
-        log(f"[main] search L={l} W=4 rerank_l=12 max_hops=6: "
-            f"recall@{K}={r:.4f} qps={pt['qps']:.0f} "
-            f"(reps {[round(v) for v in pt['qps_reps']]}) "
-            f"mean_hops={pt['mean_hops']:.2f}")
-    out["sweep"] = sweep
+    out["sweep"] = sweep = sweep_packed(idx, qd, gt, L_SWEEP, "[main]")
     best = max(p["recall"] for p in sweep)
     if best < TARGET_RECALL:
         raise RuntimeError(f"no L reached recall@{K} >= {TARGET_RECALL} (best {best:.4f})")
@@ -983,6 +1017,20 @@ def take_launches(k1, k2, phase: str | None = None) -> dict:
     return out
 
 
+def lap_clock():
+    """(lap, walls): ``lap(name)`` records under ``name`` in ``walls`` the
+    wall seconds since the previous lap (or since this call)."""
+    walls, last = {}, [time.time()]
+
+    def lap(name: str) -> None:
+        now = time.time()
+        walls[name] = round(now - last[0], 1)
+        last[0] = now
+        log(f"[wall] {name}: {walls[name]}s")
+
+    return lap, walls
+
+
 def _timed(torch, device, fn):
     """(result of fn(), wall seconds) with the device drained on both ends."""
     sync(torch, device)
@@ -1244,9 +1292,10 @@ def check_small_tiered(torch, device, n: int = 20_000) -> float:
     a `TieredIndex.build_from_host` on the card, carried to the CPU, both
     searched with the router (>= 99% identical ids); the card's tier saved
     and loaded on the CPU (ids identical to the carried copy's); then
-    `build_merged` (3 shards, R=24, L=48, occlusion cap 64) with codes
-    "packed" and "sq" on both devices: every invariant, and recall@10
-    within 0.01 (the two devices' k-means draw different partitions).  Returns the smallest share."""
+    `build_merged` (3 shards, R=24, L=48, occlusion cap 64) of the first
+    n / 2 points with codes "packed" and "sq" on both devices: every
+    invariant, and recall@10 within 0.01 (the two devices' k-means draw
+    different partitions).  Returns the smallest share."""
     import shutil
     import tempfile
 
@@ -1285,21 +1334,24 @@ def check_small_tiered(torch, device, n: int = 20_000) -> float:
         f"on the card, loaded on the CPU: ids identical to the CPU copy's {same}")
     if share < 0.99 or not same:
         raise RuntimeError(f"[small] tiered: card vs CPU {share:.4f}, reload identical {same}")
-    # an occlusion cap of 64 keeps the two CPU builds' prune near 15 s each
-    # (at 256 they took 85-102 s of the card host's CPU)
+    # an occlusion cap of 64 and half the points keep the two CPU builds'
+    # prune near 15 s each (20k points at cap 256 took 85-102 s of the card
+    # host's CPU; at cap 64, 27-29 s)
     mcfg = GraphConfig(max_degree=24, l_build=48, beam_width=4, build_max_hops=12,
                        max_occlusion_size=64)
+    xm = x[: n // 2]
+    _, gtm = FlatIndex(xm, device=device).search(q, K)
     for codes in ("packed", "sq"):
         rec = {}
         for name, dev in (("card", device), ("cpu", cpu)):
             (t, dt) = _timed(torch, dev, lambda: build_merged(
-                x, mcfg, n_shards=3, dp=32, insert_batch_size=4096, codes=codes, device=dev))
+                xm, mcfg, n_shards=3, dp=32, insert_batch_size=4096, codes=codes, device=dev))
             merged_invariants(t, f"[small] merged {codes} on the {name}")
             _, ids, _ = t.search_batched(q, K, l_search=64, batch_size=512)
-            rec[name] = (knn_recall(ids, gt, K), dt)
+            rec[name] = (knn_recall(ids, gtm, K), dt)
             del t
         diff = abs(rec["card"][0] - rec["cpu"][0])
-        log(f"[small] n={n} build_merged 3 shards codes={codes}: invariants held on both; "
+        log(f"[small] n={n // 2} build_merged 3 shards codes={codes}: invariants held on both; "
             f"recall@{K} card {rec['card'][0]:.4f} ({rec['card'][1]:.1f}s) vs CPU "
             f"{rec['cpu'][0]:.4f} ({rec['cpu'][1]:.1f}s), |diff| {diff:.4f} (need <= 0.01)")
         if diff > 0.01:
@@ -1853,7 +1905,8 @@ def _pct(v, p):
 
 def run_service(device, *, n: int = SVC_N, adds: int = SVC_WIRE_ADDS, nq: int = SVC_NQ,
                 filter_nq: int = SVC_FILTER_NQ, ele_nq: int = SVC_ELE_NQ,
-                removes: int = SVC_REMOVES, scan_nq: int = SVC_SCAN_NQ) -> dict:
+                removes: int = SVC_REMOVES, scan_nq: int = SVC_SCAN_NQ,
+                sq_nq: int = SVC_SQ_NQ) -> dict:
     """The vector-set service over the wire at the 100k x 768 shape (the
     reference CI's wikipedia-100K, inner product): `VectorService` on the
     card, `create_index("wiki", 768, metric="ip", max_degree=60,
@@ -1868,7 +1921,7 @@ def run_service(device, *, n: int = SVC_N, adds: int = SVC_WIRE_ADDS, nq: int = 
     ``removes`` VREMs (no removed name in a following VSIM, VCARD drops);
     VSETATTR / VGETATTR and a FILTER that sees the new label; VSCAN of 5
     pages x 10 for ``scan_nq`` queries (disjoint, sorted); VQUANT sq, then
-    ``nq`` VSIMs on the sq walk (recall >= 0.95).  Returns the gates, the
+    ``sq_nq`` VSIMs on the sq walk (recall >= 0.95).  Returns the gates, the
     add_batch rate and every command kind's wall latency p50 / p99."""
     import json as _json
     import threading
@@ -2013,10 +2066,10 @@ def run_service(device, *, n: int = SVC_N, adds: int = SVC_WIRE_ADDS, nq: int = 
         if timed("VQUANT", cl.execute, "VQUANT", "wiki", "sq") != "OK":
             raise RuntimeError("[service] VQUANT")
         out["vquant_s"] = time.perf_counter() - t0
-        gt = exact(keep, qs[:nq])
-        got = [ids_of(timed("VSIM sq", cl.sim, "wiki", qs[i], k=K)) for i in range(nq)]
+        gt = exact(keep, qs[:sq_nq])
+        got = [ids_of(timed("VSIM sq", cl.sim, "wiki", qs[i], k=K)) for i in range(sq_nq)]
         out["sq_recall"] = knn_recall(padded(got), gt, K)
-        log(f"[service] VQUANT sq ({out['vquant_s']:.1f}s), then {nq} VSIM on the sq walk: "
+        log(f"[service] VQUANT sq ({out['vquant_s']:.1f}s), then {sq_nq} VSIM on the sq walk: "
             f"recall@{K} {out['sq_recall']:.4f} (need >= 0.95)")
         if out["sq_recall"] < 0.95:
             raise RuntimeError(f"[service] sq VSIM recall {out['sq_recall']:.4f}")
@@ -2185,9 +2238,9 @@ def time_kernels(torch, device, n: int) -> dict:
             res["k2_err"] = check_k2_full(torch, rows, n * nwr // 8, g)
         del rows, beam, qiw
         torch.cuda.empty_cache()
-    # the other packed widths, on 2^17-node tables
-    nodes = 1 << 17
+    # the other packed widths
     for rp, dp in K1_WIDTHS:
+        nodes = MERGED_N // MERGED_SHARDS if (rp, dp) == K1_MERGED else 1 << 17
         nwr = n_wrows(rp, dp)
         rows = torch.empty(((nodes + 1) * nwr, 128), dtype=torch.int32, device=device)
         rows.random_(generator=g)
@@ -2196,16 +2249,592 @@ def time_kernels(torch, device, n: int) -> dict:
         qiw = torch.randint(-127, 128, (bw, dp), generator=g, device=device, dtype=torch.int8)
         res["k1_err"] = max(res["k1_err"], check_k1_full(torch, rows, beam, qiw, rp, dp, nodes))
         res["k1_dps"].add(dp)
-        ms = time_ms(torch, lambda: fatrow_expand(rows, beam, qiw, rp=rp, dp=dp))
-        plain = time_ms(torch, lambda: fatrow_expand_plain(rows, beam, qiw, rp=rp, dp=dp))
+        ms = time_ms(torch, lambda: fatrow_expand(rows, beam, qiw, rp=rp, dp=dp),
+                     K1_WIDTH_REPS)
+        plain = time_ms(torch, lambda: fatrow_expand_plain(rows, beam, qiw, rp=rp, dp=dp),
+                        K1_WIDTH_REPS)
         b = {"ms": ms, "plain_ms": plain, **k1_bound(torch, beam, rp, dp, nodes)}
         res[f"k1_rp{rp}_dp{dp}"] = b
-        log(f"[time] fatrow_expand rp={rp} dp={dp} bw={bw} table "
-            f"{rows.numel() * 4 / 1e9:.2f} GB: kernel {ms:.3f} ms, plain {plain:.3f} ms, "
+        log(f"[time] fatrow_expand rp={rp} dp={dp} bw={bw} table {nodes} nodes "
+            f"{rows.numel() * 4 / 1e9:.2f} GB, {K1_WIDTH_REPS} reps: kernel {ms:.4f} ms, "
+            f"plain {plain:.3f} ms, "
             f"bound {b['bound_ms']:.3f} ms ({b['bound_bytes'] / 1e6:.1f} MB, by {b['bound_by']})")
         del rows, beam, qiw
         torch.cuda.empty_cache()
     return res
+
+
+# ------------------------------------------- the dtypes, bench and sharded phases
+def main_config():
+    """`bench.py`'s build settings (the main path's)."""
+    from diskann_tpu_torch import GraphConfig
+
+    return GraphConfig(max_degree=64, l_build=100, alpha=1.2, beam_width=4,
+                       build_max_hops=12, max_occlusion_size=256)
+
+
+def sweep_packed(idx, qd, gt, ls, tag: str) -> list:
+    """The main path's packed search (W=4, rerank_l=12, max_hops=6) at each
+    L: recall@10 and QPS (best of 2 timed calls after a warm-up)."""
+    import numpy as np
+    import torch
+
+    from diskann_tpu_torch.bench.recall import knn_recall
+
+    nq = qd.shape[0]
+    out = []
+    for l in ls:
+        kw = dict(l_search=l, beam_width=4, mode="packed", rerank_l=12, max_hops=6)
+        idx.search(qd, K, **kw)
+        dts = []
+        for _ in range(2):
+            (dists, ids, stats), dt = _timed(torch, qd.device, lambda: idx.search(qd, K, **kw))
+            dts.append(dt)
+        if ids.shape != (nq, K) or not np.isfinite(dists[ids >= 0]).all():
+            raise RuntimeError(f"{tag} L={l}: malformed search result")
+        pt = {"l": l, "recall": knn_recall(ids, gt, K), "qps": nq / min(dts),
+              "qps_reps": [nq / t for t in dts], "mean_hops": float(stats.hops.mean()),
+              "mean_cmps": float(stats.cmps.mean())}
+        out.append(pt)
+        log(f"{tag} search L={l} W=4 rerank_l=12 max_hops=6: recall@{K}={pt['recall']:.4f} "
+            f"qps={pt['qps']:.0f} (reps {[round(v) for v in pt['qps_reps']]}) "
+            f"mean_hops={pt['mean_hops']:.2f}")
+    return out
+
+
+def save_without_packed(idx, path: str) -> None:
+    """Save ``idx`` without its packed table (tens of GB at 1M rows and
+    dp=128); a load re-derives it with `attach_packed`, which is
+    deterministic."""
+    packed, idx.packed = idx.packed, None
+    try:
+        idx.save(path)
+    finally:
+        idx.packed = packed
+
+
+def to_uint8(a, lo: float, hi: float):
+    """Affine map of [lo, hi] onto 0..255, rounded: a uint8 set in the
+    shape of BigANN's SIFT."""
+    import numpy as np
+
+    return np.clip(np.rint((a - lo) * (255.0 / (hi - lo))), 0, 255).astype(np.uint8)
+
+
+def run_dtypes(device, n: int, gt, main_sweep, k1, k2) -> dict:
+    """[dtypes] The main path's data stored as float16: the packed build
+    with `bench.py`'s settings, attach_packed(dp=128) and the L sweep
+    against the main path's float32 groundtruth (recall within
+    DTYPE_RECALL_GAP of the float32 main path at each L), the vectors'
+    device bytes (half of float32's), and a save/load round trip with
+    identical ids.  Then a uint8 set (the same data mapped to 0..255, as
+    BigANN's SIFT holds it, with its own exact groundtruth): the same build
+    and a sweep to L=100 that must reach TARGET_RECALL.  Both builds must
+    launch K1 and K2.  Then `check_small_dtypes`."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from diskann_tpu_torch import FlatIndex, GraphIndex
+    from diskann_tpu_torch.bench.harness import make_clustered
+
+    out = {}
+    x, q = make_clustered(0, n, NQ, D, n_clusters=4096, sigma=0.35)
+    qd = torch.from_numpy(q).to(device)
+    build_kw = dict(insert_batch_size=8192, search_batch_size=NQ, build_mode="packed",
+                    packed_dp=64, build_backedge_src_cap=64, device=device)
+    cases = [("float16", torch.float16, x.astype(np.float16), qd, gt, L_SWEEP)]
+    lo, hi = float(x.min()), float(x.max())
+    xu, qu = to_uint8(x, lo, hi), to_uint8(q, lo, hi)
+    del x
+    qud = torch.from_numpy(qu.astype(np.float32)).to(device)
+    (_, gtu), dt = _timed(torch, device, lambda: FlatIndex(
+        torch.from_numpy(xu.astype(np.float32)).to(device)).search(qud, K))
+    log(f"[dtypes] uint8 set {n} x {D} (affine [{lo:.3f}, {hi:.3f}] -> 0..255): exact "
+        f"top-{K} in {dt:.1f}s")
+    cases.append(("uint8", torch.uint8, xu, qud, gtu, DTYPE_UINT8_L))
+    for name, dtype, data, qq, truth, ls in cases:
+        take_launches(k1, k2)
+        idx, dt = _timed(torch, device, lambda: GraphIndex.build(
+            data, main_config(), dtype=dtype, **build_kw))
+        launches = take_launches(k1, k2, f"dtypes {name} build")
+        vec = idx.state.vectors
+        row = {"dtype": name, "build_s": dt, "build_points_per_s": n / dt,
+               "vector_bytes": vec.numel() * vec.element_size(),
+               "float32_bytes": vec.numel() * 4, "build_launches": launches}
+        log(f"[dtypes] {name} packed build: {dt:.1f}s ({n / dt:.0f} points/s); vectors "
+            f"{vec.dtype} {row['vector_bytes'] / 1e6:.1f} MB on the device (float32: "
+            f"{row['float32_bytes'] / 1e6:.1f} MB)")
+        if vec.dtype != dtype or min(launches.values()) == 0:
+            raise RuntimeError(f"[dtypes] {name}: stored {vec.dtype}, launches {launches}")
+        idx.attach_packed(dp=128)
+        idx.router_compute = "bf16"
+        row["sweep"] = sweep_packed(idx, qq, truth, ls, f"[dtypes] {name}")
+        row["launches"] = take_launches(k1, k2, f"dtypes {name}")
+        if name == "float16":
+            if row["vector_bytes"] * 2 != row["float32_bytes"]:
+                raise RuntimeError("[dtypes] float16 vectors do not take half the bytes")
+            gaps = [abs(p["recall"] - m["recall"]) for p, m in zip(row["sweep"], main_sweep)]
+            row["max_recall_gap"] = max(gaps)
+            log(f"[dtypes] float16 against the float32 main path: recall@{K} gaps per L "
+                f"{[round(g, 4) for g in gaps]} (need <= {DTYPE_RECALL_GAP})")
+            if max(gaps) > DTYPE_RECALL_GAP:
+                raise RuntimeError(f"[dtypes] float16 recall strays {max(gaps):.4f} from float32")
+            kw = dict(l_search=24, beam_width=4, mode="packed", rerank_l=12, max_hops=6)
+            _, want, _ = idx.search(qq, K, **kw)
+            tmp = tempfile.mkdtemp(prefix="chip_smoke_f16_")
+            try:
+                _, dt_save = _timed(torch, device, lambda: save_without_packed(idx, tmp))
+                re, dt_load = _timed(torch, device, lambda: GraphIndex.load(
+                    tmp, device=device, search_batch_size=NQ))
+            finally:
+                shutil.rmtree(tmp)
+            re.attach_packed(dp=128)
+            re.router_compute = "bf16"
+            _, got, _ = re.search(qq, K, **kw)
+            row.update(save_s=dt_save, load_s=dt_load,
+                       reload_identical=bool(np.array_equal(got, want)))
+            log(f"[dtypes] float16 save {dt_save:.1f}s, load {dt_load:.1f}s "
+                f"({re.state.vectors.dtype}), re-attach, search L=24: identical ids "
+                f"{row['reload_identical']}")
+            if re.state.vectors.dtype != torch.float16 or not row["reload_identical"]:
+                raise RuntimeError("[dtypes] the float16 save/load round trip changed results")
+            del re
+            take_launches(k1, k2)
+        else:
+            best = max(p["recall"] for p in row["sweep"])
+            if best < TARGET_RECALL:
+                raise RuntimeError(f"[dtypes] uint8: no L <= 100 reached recall@{K} "
+                                   f">= {TARGET_RECALL} (best {best:.4f})")
+        out[name] = row
+        del idx
+        torch.cuda.empty_cache()
+    out["small"] = check_small_dtypes(torch, device)
+    return out
+
+
+def check_small_dtypes(torch, device) -> dict:
+    """bfloat16 and int8 vectors at 20k: a packed index built on the card
+    with each dtype, carried to the CPU by `convert.py` in its own dtype,
+    searched on both: full-precision ids identical on >= DTYPE_SMALL_SHARE
+    of (query, rank) entries (the lift to float32 is exact on both; only
+    float32 sum order differs), the packed walk on >= 0.99 (as the other
+    small checks: the query's int8 code may round differently).  The
+    bfloat16 index is then saved and loaded on the card: identical ids."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from diskann_tpu_torch import GraphConfig, GraphIndex
+    from diskann_tpu_torch.bench.harness import make_clustered
+    from diskann_tpu_torch.convert import graph_index_from_arrays, index_arrays
+
+    n = 20_000
+    x, q = make_clustered(2, n, 512, D, n_clusters=256, sigma=0.35)
+    cfg = GraphConfig(max_degree=32, l_build=64, beam_width=4)
+    full = dict(l_search=40, mode="full")
+    packed = dict(l_search=24, beam_width=4, mode="packed", rerank_l=12, max_hops=6)
+    out = {}
+    for name, dtype, data, qq in (
+        ("bfloat16", torch.bfloat16, x, q),
+        ("int8", torch.int8, np.clip(np.rint(x * 24), -127, 127).astype(np.int8),
+         np.rint(q * 24).astype(np.float32)),
+    ):
+        card = GraphIndex.build(data, cfg, insert_batch_size=4096, build_mode="packed",
+                                packed_dp=64, dtype=dtype, device=device)
+        card.attach_packed(dp=128)
+        host = graph_index_from_arrays(**index_arrays(card), device="cpu",
+                                       insert_batch_size=card.insert_batch_size)
+        if host.state.vectors.dtype != dtype or card.state.vectors.dtype != dtype:
+            raise RuntimeError(f"[small-dtypes] {name}: the vectors lost their dtype")
+        row = {}
+        for mode, kw, bar in (("full", full, DTYPE_SMALL_SHARE), ("packed", packed, 0.99)):
+            _, ids_card, _ = card.search(qq, K, **kw)
+            _, ids_host, _ = host.search(qq, K, **kw)
+            row[mode] = float((ids_card == ids_host).mean())
+            log(f"[small-dtypes] n={n} {name} {mode} search on the card vs the CPU copy: "
+                f"identical ids {row[mode]:.4f} (need >= {bar})")
+            if row[mode] < bar:
+                raise RuntimeError(f"[small-dtypes] {name} {mode}: card and CPU disagree")
+        if name == "bfloat16":
+            tmp = tempfile.mkdtemp(prefix="chip_smoke_bf16_")
+            try:
+                card.save(tmp)
+                re = GraphIndex.load(tmp, device=device)
+            finally:
+                shutil.rmtree(tmp)
+            same = all(np.array_equal(re.search(qq, K, **kw)[1], card.search(qq, K, **kw)[1])
+                       for kw in (full, packed))
+            row["reload_identical"] = same
+            log(f"[small-dtypes] bfloat16 save/load on the card ({re.state.vectors.dtype}): "
+                f"identical ids {same}")
+            if re.state.vectors.dtype != torch.bfloat16 or not same:
+                raise RuntimeError("[small-dtypes] the bfloat16 round trip changed results")
+        out[name] = row
+    return out
+
+
+def run_bench(device, idx_dir: str, k1, k2, *, example: str | None = None) -> dict:
+    """[bench] `python -m diskann_tpu_torch.bench`, in process on the card:
+    `list` (the six families), `run` of every example job file and of a
+    flat job (the six families), `check` of one search result against
+    itself under `example/tolerances.json` (must pass), then `abgate` on
+    the main path's 1M index (loaded from ``idx_dir``, re-attached at
+    dp=128): an A/A run of BENCH_SIDE with itself and one A/B run of
+    merge_trunc off against on, BENCH_REPS reps each, the probe's clean
+    threshold calibrated on the card.  Prints each side's median QPS, the
+    spread of its reps and its probe times; the A/A spread is the noise
+    floor.  ``example``: the job files' directory (default: the package's
+    `bench/example/`)."""
+    import contextlib
+    import glob
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    import diskann_tpu_torch.bench as bench_pkg
+    from diskann_tpu_torch.bench.__main__ import main as bench_main
+
+    def cli(argv):
+        buf = io.StringIO()
+        code = 0
+        with contextlib.redirect_stdout(buf):
+            try:
+                bench_main(argv)
+            except SystemExit as e:
+                code = e.code
+        return code, buf.getvalue()
+
+    example = example or os.path.join(os.path.dirname(bench_pkg.__file__), "example")
+    out = {"families": {}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bench_")
+    try:
+        _, listed = cli(["list"])
+        names = listed.split()
+        log(f"[bench] list: {names}")
+        if len(names) != 6:
+            raise RuntimeError(f"[bench] list printed {names}, not six families")
+        flat_job = os.path.join(tmp, "flat.json")
+        with open(flat_job, "w") as f:
+            json.dump([{"benchmark": "flat", "n": 100_000, "dim": 64, "n_queries": 1000}], f)
+        jobs = [p for p in sorted(glob.glob(os.path.join(example, "*.json")))
+                if "tolerances" not in p] + [flat_job]
+        for path in jobs:
+            res_path = os.path.join(tmp, "res_" + os.path.basename(path))
+            (code, _), dt = _timed(torch, device, lambda: cli(
+                ["run", path, "-o", res_path, "--device", str(device)]))
+            if code:
+                raise RuntimeError(f"[bench] run {path} exited {code}")
+            with open(res_path) as f:
+                for r in json.load(f):
+                    res = r["result"]
+                    fam = r["benchmark"]
+                    if fam == "graph-index":
+                        brief = {"build_points_per_s": res["build"]["points_per_s"],
+                                 "search": [{k: p[k] for k in ("l_search", "recall", "qps")}
+                                            for p in res["search"]]}
+                        out["sweep_point"] = res["search"][0]
+                    elif fam == "streaming":
+                        brief = {"checkpoints": [round(e.get("recall", -1), 4)
+                                                 for e in res["log"] if "recall" in e]}
+                    else:
+                        brief = {k: v for k, v in res.items() if not isinstance(v, (list, dict))}
+                    out["families"].setdefault(fam, []).append(
+                        {"job": {k: v for k, v in r["job"].items()}, "wall_s": r["wall_s"],
+                         **brief})
+                    log(f"[bench] {fam} {json.dumps(r['job'])}: {json.dumps(brief)} "
+                        f"({r['wall_s']:.1f}s)")
+            log(f"[bench] run {os.path.basename(path)}: {dt:.1f}s")
+        if sorted(out["families"]) != sorted(names):
+            raise RuntimeError(f"[bench] ran {sorted(out['families'])}, listed {names}")
+        point = os.path.join(tmp, "point.json")
+        with open(point, "w") as f:
+            json.dump(out["sweep_point"], f)
+        code, text = cli(["check", point, point, os.path.join(example, "tolerances.json")])
+        log(f"[bench] check of a graph-index result against itself: exit {code}, "
+            f"{text.strip().splitlines()[-1]}")
+        if code:
+            raise RuntimeError("[bench] check of a result against itself failed")
+        take_launches(k1, k2)
+        for tag, side_b in (("A/A", BENCH_SIDE), ("A/B", BENCH_SIDE.replace("mtrunc=0",
+                                                                           "mtrunc=1"))):
+            art = os.path.join(tmp, "gate.txt")
+            (code, _), dt = _timed(torch, device, lambda: cli([
+                "abgate", "--n", str(BENCH_N), "--nq", str(NQ), "--a", BENCH_SIDE,
+                "--b", side_b, "--reps", str(BENCH_REPS), "--idx-cache", idx_dir,
+                "--device", str(device), "-o", art]))
+            with open(art) as f:
+                text = f.read()
+            raw = json.loads(text.strip().splitlines()[-1])
+            row = {"a": BENCH_SIDE, "b": side_b, "verdict": raw["verdict"], "exit": code,
+                   "s": dt, "clean_s": float(text.split("--clean-s ")[1].split()[0])}
+            for name, side in raw["search"].items():
+                qps = [r["qps"] for r in side["reps"] if r["clean"]]
+                probes = [p for r in side["reps"] for p in (r["probe_before"], r["probe_after"])]
+                row[name] = {"median_qps": side["qps"], "recall": side["recall"],
+                             "reps": [r["qps"] for r in side["reps"]],
+                             "spread": (max(qps) - min(qps)) / side["qps"] if qps else None,
+                             "probe_ms": [round(p * 1e3, 3) for p in probes]}
+                log(f"[bench] abgate {tag} side {name} ({row['a'] if name == 'A' else side_b}): "
+                    f"median qps {side['qps']}, recall {side['recall']}, reps {row[name]['reps']} "
+                    f"(spread {row[name]['spread']}), probe ms {row[name]['probe_ms']}")
+            log(f"[bench] abgate {tag}: verdict {raw['verdict']} (exit {code}), clean "
+                f"threshold {row['clean_s'] * 1e3:.3f} ms, {dt:.1f}s")
+            if raw["search"]["A"]["recall"] < TARGET_RECALL or (
+                    tag == "A/A" and raw["search"]["A"]["recall"] != raw["search"]["B"]["recall"]):
+                raise RuntimeError(f"[bench] abgate {tag}: recall {raw['search']}")
+            out[tag] = row
+        out["launches"] = take_launches(k1, k2, "bench abgate")
+        if out["launches"]["fatrow_expand"] == 0:
+            raise RuntimeError("[bench] K1 never launched in the abgate's packed search")
+    finally:
+        shutil.rmtree(tmp)
+    return out
+
+
+def run_sharded(device, n: int, gt, k1, k2) -> dict:
+    """[sharded] The main path's data over SHARD_S shards on the one card:
+    the k-means partition with overlap 2, inserts of 8192 rows with the
+    main path's settings, attach_packed(dp=128), full and packed search at
+    SHARD_L (the packed walk must reach TARGET_RECALL and launch K1), the
+    filtered "cat0" search, a delete of SHARD_DELETE external ids (none may
+    come back), save / load (identical ids), and `sharded_flat_search`
+    against `FlatIndex` (identical ids).  Then `run_sharded_10m`."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from diskann_tpu_torch import FlatIndex
+    from diskann_tpu_torch.bench.harness import make_clustered
+    from diskann_tpu_torch.bench.recall import knn_recall
+    from diskann_tpu_torch.parallel import (
+        ShardedGraphIndex, kmeans_partition, sharded_flat_search,
+    )
+
+    out = {"n": n, "shards": SHARD_S, "sweep": []}
+    x, q = make_clustered(0, n, NQ, D, n_clusters=4096, sigma=0.35)
+    qd = torch.from_numpy(q).to(device)
+    (_, assign), dt = _timed(torch, device, lambda: kmeans_partition(
+        x, SHARD_S, overlap=2, device=device))
+    counts = np.bincount(assign.ravel(), minlength=SHARD_S)
+    log(f"[sharded] k-means partition of {n} into {SHARD_S} shards, overlap 2: "
+        f"{dt:.1f}s, rows per shard {counts.tolist()}")
+    idx = ShardedGraphIndex(SHARD_S, D, main_config(), cap_per_shard=int(counts.max()),
+                            device=device)
+    take_launches(k1, k2)
+
+    def insert_all():
+        for off in range(0, n, 8192):
+            idx.insert(x[off:off + 8192], assign[off:off + 8192])
+
+    _, dt = _timed(torch, device, insert_all)
+    out.update(build_s=dt, build_points_per_s=n / dt,
+               routed_rows_per_s=int(counts.sum()) / dt)
+    log(f"[sharded] inserts of 8192 (full precision): {dt:.1f}s ({n / dt:.0f} points/s, "
+        f"{counts.sum() / dt:.0f} routed rows/s); capacity per shard {idx.cap_per_shard}")
+    out["build_launches"] = take_launches(k1, k2, "sharded build")
+    ecol = idx.ext.cpu().numpy()
+    if not (np.bincount(ecol[ecol >= 0], minlength=n) == 2).all():
+        raise RuntimeError("[sharded] an external id is not stored in exactly two shards")
+    _, dt = _timed(torch, device, lambda: idx.attach_packed(dp=128))
+    out["attach_s"] = dt
+    out["attach_launches"] = take_launches(k1, k2, "sharded attach_packed")
+    log(f"[sharded] attach_packed dp=128: {dt:.1f}s")
+    for mode in ("full", "packed"):
+        idx.search(qd[:1024], K, l_search=SHARD_L[0], mode=mode)
+        for l in SHARD_L:
+            (dists, ids, _), dt = _timed(torch, device, lambda: idx.search(
+                qd, K, l_search=l, mode=mode))
+            s = np.sort(ids, axis=1)
+            if ((s[:, 1:] == s[:, :-1]) & (s[:, 1:] >= 0)).any():
+                raise RuntimeError(f"[sharded] {mode} L={l}: an overlap copy came back twice")
+            pt = {"mode": mode, "l": l, "recall": knn_recall(ids, gt, K), "qps": NQ / dt}
+            out["sweep"].append(pt)
+            log(f"[sharded] {mode} search L={l}: recall@{K}={pt['recall']:.4f} "
+                f"qps={pt['qps']:.0f}")
+        out[f"{mode}_launches"] = take_launches(k1, k2, f"sharded {mode} search")
+    best = max(p["recall"] for p in out["sweep"] if p["mode"] == "packed")
+    if best < TARGET_RECALL or out["packed_launches"]["fatrow_expand"] == 0:
+        raise RuntimeError(f"[sharded] packed search: best recall {best:.4f}, "
+                           f"launches {out['packed_launches']}")
+
+    cats = bench_cats(n)
+    idx.attach_labels([[f"cat{c}"] for c in cats])
+    mask = pred_mask(cats, "cat0")
+    members = np.nonzero(mask)[0]
+    _, local = FlatIndex(x[members], device=device).search(qd, K)
+    (_, ids, _), dt = _timed(torch, device, lambda: idx.search_filtered(
+        qd, "cat0", K, l_search=90))
+    check_filtered_ids(ids, mask, "[sharded] cat0")
+    out["cat0"] = {"recall": knn_recall(ids, members[local], K), "qps": NQ / dt}
+    log(f"[sharded] filtered cat0 (inline walk, L=90): recall@{K}="
+        f"{out['cat0']['recall']:.4f} qps={out['cat0']['qps']:.0f}")
+
+    dead = np.random.default_rng(5).choice(n, size=SHARD_DELETE, replace=False)
+    take_launches(k1, k2)
+    _, dt = _timed(torch, device, lambda: idx.delete(dead))
+    out["delete"] = {"n": SHARD_DELETE, "s": dt, "freed": idx._free_total,
+                     "launches": take_launches(k1, k2, "sharded delete")}
+    for mode in ("full", "packed"):
+        _, ids, _ = idx.search(qd, K, l_search=40, mode=mode)
+        if np.isin(ids[ids >= 0], dead).any():
+            raise RuntimeError(f"[sharded] {mode} search returned a deleted id")
+        out["delete"][f"{mode}_recall"] = knn_recall(ids, gt, K)
+    log(f"[sharded] delete {SHARD_DELETE} external ids ({idx._free_total} slots freed): "
+        f"{dt:.1f}s; no deleted id returned; recall@{K} at L=40 against the "
+        f"pre-delete truth: full {out['delete']['full_recall']:.4f}, packed "
+        f"{out['delete']['packed_recall']:.4f}")
+    if out["delete"]["launches"]["block_patch"] == 0:
+        raise RuntimeError("[sharded] K2 never launched in the delete's packed refresh")
+    take_launches(k1, k2)
+
+    _, want, _ = idx.search(qd, K, l_search=40)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        _, dt_save = _timed(torch, device, lambda: idx.save(tmp))
+        re, dt_load = _timed(torch, device, lambda: ShardedGraphIndex.load(tmp, device=device))
+    finally:
+        shutil.rmtree(tmp)
+    _, got, _ = re.search(qd, K, l_search=40)
+    out["save_s"], out["load_s"] = dt_save, dt_load
+    out["reload_identical"] = bool(np.array_equal(got, want))
+    log(f"[sharded] save {dt_save:.1f}s, load {dt_load:.1f}s: identical ids "
+        f"{out['reload_identical']}")
+    if not out["reload_identical"]:
+        raise RuntimeError("[sharded] the save/load round trip changed results")
+    del re, idx
+    torch.cuda.empty_cache()
+
+    xd = torch.from_numpy(x).to(device)
+    (fd, fi), dt = _timed(torch, device, lambda: sharded_flat_search(SHARD_S, xd, qd, K))
+    (gd, gi), dt_flat = _timed(torch, device, lambda: FlatIndex(xd).search(qd, K))
+    out["flat"] = {"s": dt, "flat_index_s": dt_flat,
+                   "identical_ids": float((fi.cpu().numpy() == gi).mean())}
+    log(f"[sharded] sharded_flat_search ({SHARD_S} blocks) {dt:.2f}s vs FlatIndex "
+        f"{dt_flat:.2f}s: identical ids {out['flat']['identical_ids']:.6f}")
+    if out["flat"]["identical_ids"] != 1.0:
+        raise RuntimeError("[sharded] sharded_flat_search disagrees with FlatIndex")
+    del xd, x
+    torch.cuda.empty_cache()
+    out["10m"] = run_sharded_10m(device, k1, k2)
+    return out
+
+
+def adopt_synthetic(torch, idx, n_total: int, r: int) -> None:
+    """Fill the sharded index with a structurally valid synthetic graph on
+    the card (`scripts/bench_sharded10m.py`'s recipe): a ring adjacency
+    (slot i -> i+1..i+r mod the shard's rows; no repeats, no self-loops,
+    degrees consistent), random Gaussian vectors, round-robin external ids
+    (slot i of shard s holds s + i * n_shards)."""
+    s_count = idx.n_shards
+    ns = n_total // s_count
+    cap = idx.cap_per_shard
+    dev = idx.device
+    g = torch.Generator(device=dev).manual_seed(0)
+    slot = torch.arange(cap, device=dev, dtype=torch.int32)
+    live = slot < ns
+    adj = (slot[:, None] + torch.arange(1, r + 1, device=dev, dtype=torch.int32)) % ns
+    adj = torch.where(live[:, None], adj, -1)
+    adj = torch.nn.functional.pad(adj, (0, idx.config.max_degree_with_slack - r), value=-1)
+    for s in range(s_count):
+        st = idx.shard(s)
+        vecs = torch.randn((cap, idx.dim), generator=g, device=dev)
+        vecs[~live] = 0.0
+        st.vectors.copy_(vecs)
+        st.sq_norms.copy_((vecs * vecs).sum(1))
+        st.adjacency.copy_(adj)
+        st.degrees.copy_(torch.where(live, r, 0))
+        st.valid.copy_(live)
+        st.vec_sum.copy_(vecs.sum(0))
+        idx.ext[s] = torch.where(live, slot * s_count + s, -1)
+    idx.ns[:] = ns
+    idx.starts.zero_()
+    idx.next_ext = ns * s_count
+
+
+def run_sharded_10m(device, k1, k2) -> dict:
+    """The JAX package's own sharded scale (`scripts/bench_sharded10m.py`):
+    SH10M_N x SH10M_D over SH10M_S shards on the one card, a synthetic ring
+    graph adopted on the card, then insert SH10M_BATCH rows with overlap 2,
+    delete SH10M_BATCH adopted ids, re-insert SH10M_BATCH (freed slots
+    recycle first), search (valid external ids), save and load (identical
+    ids).  Each time is printed beside the JAX package's CPU-mesh figures
+    (`SHARDED10M_r04.json`), which are not a yardstick for speed."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from diskann_tpu_torch import GraphConfig
+    from diskann_tpu_torch.parallel import ShardedGraphIndex
+
+    s_count, bsz = SH10M_S, SH10M_BATCH
+    cfg = GraphConfig(max_degree=SH10M_R, l_build=32, beam_width=4, build_max_hops=8,
+                      max_occlusion_size=64)
+    cap = SH10M_N // s_count + 3 * bsz
+    out = {"n": SH10M_N, "d": SH10M_D, "shards": s_count}
+    idx = ShardedGraphIndex(s_count, SH10M_D, cfg, cap_per_shard=cap, device=device)
+    _, out["adopt_s"] = _timed(torch, device, lambda: adopt_synthetic(torch, idx, SH10M_N,
+                                                                      SH10M_R))
+    rng = np.random.default_rng(3)
+
+    def free_slots():
+        return sum(int((~idx.stacked.valid[s, : int(idx.ns[s])]).sum())
+                   for s in range(s_count))
+
+    take_launches(k1, k2)
+    ext_ids, out["insert_s"] = _timed(torch, device, lambda: idx.insert(
+        rng.standard_normal((bsz, SH10M_D)).astype(np.float32),
+        rng.integers(0, s_count, size=(bsz, 2))))
+    if len(ext_ids) != bsz or idx.next_ext != SH10M_N + bsz:
+        raise RuntimeError("[sharded-10m] insert assigned the wrong external ids")
+    dead = rng.choice(SH10M_N, size=bsz, replace=False)
+    _, out["delete_s"] = _timed(torch, device, lambda: idx.delete(dead))
+    freed = free_slots()
+    if freed < bsz:
+        raise RuntimeError(f"[sharded-10m] {freed} slots freed for {bsz} deleted ids")
+    ns_before = idx.ns.copy()
+    _, out["reinsert_s"] = _timed(torch, device, lambda: idx.insert(
+        rng.standard_normal((bsz, SH10M_D)).astype(np.float32),
+        rng.integers(0, s_count, size=(bsz, 2))))
+    out["recycled_slots"] = freed - free_slots()
+    out["hwm_growth"] = int((idx.ns - ns_before).sum())
+    q = rng.standard_normal((64, SH10M_D)).astype(np.float32)
+    _, i, _ = idx.search(q, K)
+    if not ((i >= 0) & (i < idx.next_ext)).all() or np.isin(i, dead).any():
+        raise RuntimeError("[sharded-10m] search returned an invalid or deleted id")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sh10m_")
+    try:
+        _, out["save_s"] = _timed(torch, device, lambda: idx.save(tmp))
+        out["saved_bytes"] = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+        re, out["load_s"] = _timed(torch, device, lambda: ShardedGraphIndex.load(
+            tmp, device=device))
+    finally:
+        shutil.rmtree(tmp)
+    _, i2, _ = re.search(q, K)
+    out["reload_identical"] = bool(np.array_equal(i, i2))
+    out["launches"] = take_launches(k1, k2, "sharded-10m")
+    for key in ("insert", "delete", "reinsert", "save", "load"):
+        log(f"[sharded-10m] {key} {out[key + '_s']:.2f}s on the card (the JAX package's "
+            f"8-device CPU mesh, SHARDED10M_r04.json: {SH10M_R04[key]}s)")
+    log(f"[sharded-10m] adopt {out['adopt_s']:.1f}s; recycled {out['recycled_slots']} freed "
+        f"slots (high-water marks grew {out['hwm_growth']}); saved "
+        f"{out['saved_bytes'] / 1e9:.2f} GB; reload identical ids {out['reload_identical']}")
+    if not out["reload_identical"] or out["recycled_slots"] < bsz // 2:
+        raise RuntimeError("[sharded-10m] reload or slot recycling failed")
+    del idx, re
+    torch.cuda.empty_cache()
+    return out
 
 
 def main(argv=None) -> int:
@@ -2236,6 +2865,7 @@ def main(argv=None) -> int:
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
+    lap, walls = lap_clock()
     t0 = time.time()
     lib = native.build()
     native.library()
@@ -2248,6 +2878,7 @@ def main(argv=None) -> int:
     check_small_tiered(torch, device)
     check_packed_widths(torch, device, k1)
     torch.cuda.empty_cache()
+    lap("build_and_small_checks")
 
     torch.cuda.reset_peak_memory_stats(device)
     k1.launches = 0
@@ -2259,123 +2890,170 @@ def main(argv=None) -> int:
         f"max_memory_allocated {peak / 2**30:.2f} GiB")
     if min(launches.values()) == 0:
         raise RuntimeError(f"a kernel of the main path never launched: {launches}")
+    lap("main")
 
-    # the filtered path runs K1 only: K2 writes the table it reads
-    k1.launches = 0
-    k2.launches = 0
-    filt_rows, filt_gt = run_filtered(idx, qd, k1)
-    filt_launches = {"fatrow_expand": k1.launches, "block_patch": k2.launches}
-    log(f"[filtered] kernel launches on the filtered path: {filt_launches}")
-    if filt_launches["fatrow_expand"] == 0:
-        raise RuntimeError("K1 never launched on the filtered path")
-    profiled = profile_filtered_walk(idx, qd)
-    full = run_full_route(idx, qd, gt, filt_gt["cat0"])
+    # the main path's index as built, for the [bench] phase's abgate
+    # (`--idx-cache`); later phases attach codes and drop its vectors
+    main_dir = tempfile.mkdtemp(prefix="chip_smoke_main_")
+    try:
+        save_without_packed(idx, main_dir)
+        # the filtered path runs K1 only: K2 writes the table it reads
+        k1.launches = 0
+        k2.launches = 0
+        filt_rows, filt_gt = run_filtered(idx, qd, k1)
+        filt_launches = {"fatrow_expand": k1.launches, "block_patch": k2.launches}
+        log(f"[filtered] kernel launches on the filtered path: {filt_launches}")
+        if filt_launches["fatrow_expand"] == 0:
+            raise RuntimeError("K1 never launched on the filtered path")
+        profiled = profile_filtered_walk(idx, qd)
+        full = run_full_route(idx, qd, gt, filt_gt["cat0"])
+        lap("filtered_and_full")
 
-    # the quantized walks launch no kernel (their scorers are torch ops);
-    # every packed route of the modes phase runs K1
-    phase_launches = {}
-    take_launches(k1, k2)
-    quant = run_quant(idx, qd, gt)
-    phase_launches["quant"] = take_launches(k1, k2, "quant")
-    modes_out = run_modes(idx, qd, k1)
-    phase_launches["modes"] = take_launches(k1, k2, "modes")
-    # mode="auto" on the 1M index: the flat route against the packed walk
-    # at the main path's operating point
-    auto_1m = time_auto("1M x 128", idx, qd, gt, dict(l_search=24, beam_width=4, mode="packed",
-                                                      rerank_l=12, max_hops=6), k1)
-    auto_1m["flat_rows"] = time_flat_rows(idx, qd)
-    phase_launches["auto"] = take_launches(k1, k2, "auto")
-    # the tiered search walks the packed table (K1) and writes nothing
-    tiered = run_tiered(idx, qd, gt, filt_gt["cat0"], modes_out["range"]["radius"], k1)
-    phase_launches["tiered"] = take_launches(k1, k2, "tiered")
-    del idx, qd
-    torch.cuda.empty_cache()
+        # the quantized walks launch no kernel (their scorers are torch ops);
+        # every packed route of the modes phase runs K1
+        phase_launches = {}
+        take_launches(k1, k2)
+        quant = run_quant(idx, qd, gt)
+        phase_launches["quant"] = take_launches(k1, k2, "quant")
+        lap("quant")
+        modes_out = run_modes(idx, qd, k1)
+        phase_launches["modes"] = take_launches(k1, k2, "modes")
+        lap("modes")
+        # mode="auto" on the 1M index: the flat route against the packed walk
+        # at the main path's operating point
+        auto_1m = time_auto("1M x 128", idx, qd, gt, dict(
+            l_search=24, beam_width=4, mode="packed", rerank_l=12, max_hops=6), k1)
+        auto_1m["flat_rows"] = time_flat_rows(idx, qd)
+        phase_launches["auto"] = take_launches(k1, k2, "auto")
+        lap("auto")
+        # the tiered search walks the packed table (K1) and writes nothing
+        tiered = run_tiered(idx, qd, gt, filt_gt["cat0"], modes_out["range"]["radius"], k1)
+        phase_launches["tiered"] = take_launches(k1, k2, "tiered")
+        lap("tiered")
+        del idx, qd
+        torch.cuda.empty_cache()
 
-    times = time_kernels(torch, device, args.n)
-    torch.cuda.empty_cache()
+        times = time_kernels(torch, device, args.n)
+        torch.cuda.empty_cache()
+        lap("kernel_times")
 
-    # the stream path: deletes launch K2 (refresh_rows), inserts and the
-    # checkpoint searches launch both
-    x, q = stream_data()
-    torch.cuda.reset_peak_memory_stats(device)
-    stream = run_stream(x, q, device, k1, k2)
-    stream_launches = stream["launches"]
-    if min(stream_launches.values()) == 0:
-        raise RuntimeError(f"a kernel of the stream path never launched: {stream_launches}")
-    torch.cuda.empty_cache()
-    k1.launches = 0
-    k2.launches = 0
-    runbook = run_runbook(x, q, device)
-    runbook["launches"] = {"fatrow_expand": k1.launches, "block_patch": k2.launches}
-    log(f"[runbook] kernel launches (full precision, no packed layout): "
-        f"{runbook['launches']}")
-    del x, q
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(device)
-    take_launches(k1, k2)
-    wiki = run_wiki(device, k1)
-    phase_launches["wiki"] = take_launches(k1, k2, "wiki")
-    torch.cuda.empty_cache()
-    # the service: no packed layout, so neither kernel runs
-    service = run_service(device)
-    phase_launches["service"] = take_launches(k1, k2, "service")
-    torch.cuda.empty_cache()
-    # the merged build runs both kernels in every shard's packed build; its
-    # sq search walks no packed table
-    merged = run_merged(device, k1, k2)
-    phase_launches["merged_build"] = merged["build_launches"]
-    phase_launches["merged_search"] = merged["search_launches"]
+        # the stream path: deletes launch K2 (refresh_rows), inserts and the
+        # checkpoint searches launch both
+        x, q = stream_data()
+        torch.cuda.reset_peak_memory_stats(device)
+        stream = run_stream(x, q, device, k1, k2)
+        stream_launches = stream["launches"]
+        if min(stream_launches.values()) == 0:
+            raise RuntimeError(f"a kernel of the stream path never launched: {stream_launches}")
+        torch.cuda.empty_cache()
+        lap("stream")
+        k1.launches = 0
+        k2.launches = 0
+        runbook = run_runbook(x, q, device)
+        runbook["launches"] = {"fatrow_expand": k1.launches, "block_patch": k2.launches}
+        log(f"[runbook] kernel launches (full precision, no packed layout): "
+            f"{runbook['launches']}")
+        del x, q
+        torch.cuda.empty_cache()
+        lap("runbook")
+        torch.cuda.reset_peak_memory_stats(device)
+        take_launches(k1, k2)
+        wiki = run_wiki(device, k1)
+        phase_launches["wiki"] = take_launches(k1, k2, "wiki")
+        torch.cuda.empty_cache()
+        lap("wiki")
+        # the service: no packed layout, so neither kernel runs
+        service = run_service(device)
+        phase_launches["service"] = take_launches(k1, k2, "service")
+        torch.cuda.empty_cache()
+        lap("service")
+        # the merged build runs both kernels in every shard's packed build; its
+        # sq search walks no packed table
+        merged = run_merged(device, k1, k2)
+        phase_launches["merged_build"] = merged["build_launches"]
+        phase_launches["merged_search"] = merged["search_launches"]
+        torch.cuda.empty_cache()
+        lap("merged")
 
-    k1t, k2t = times["k1_rp84_dp128"], times["k2_int32"]
-    kernels = [
-        {"name": "fatrow_expand", "route": "cuda", "source": K1_SOURCE,
-         "replaces": K1_REPLACES, "launches": launches["fatrow_expand"],
-         "filtered_launches": filt_launches["fatrow_expand"],
-         "stream_launches": stream_launches["fatrow_expand"],
-         **{f"{p}_launches": phase_launches[p]["fatrow_expand"] for p in phase_launches},
-         "max_abs_err": max(k1_err, times["k1_err"]),
-         "ms": k1t["ms"], "plain_ms": k1t["plain_ms"],
-         "bound_ms": k1t["bound_ms"], "bound_by": k1t["bound_by"],
-         "library_ms": None,
-         "shape": "rp=84 dp=128 bw=32768",
-         # the dps whose bitwise checks passed in this run
-         "dps_checked": sorted(k1_dps | times["k1_dps"]),
-         **{f"{key}_rp{rp}_dp{dp}": times[f"k1_rp{rp}_dp{dp}"][key]
-            for rp, dp in ((88, 64),) + K1_WIDTHS for key in ("ms", "plain_ms", "bound_ms")}},
-        {"name": "block_patch", "route": "cuda", "source": K2_SOURCE,
-         "replaces": K2_REPLACES, "launches": launches["block_patch"],
-         "filtered_launches": filt_launches["block_patch"],
-         "stream_launches": stream_launches["block_patch"],
-         **{f"{p}_launches": phase_launches[p]["block_patch"] for p in phase_launches},
-         "max_abs_err": max(k2_err, times["k2_err"]),
-         "ms": k2t["ms"], "plain_ms": k2t["plain_ms"],
-         "bound_ms": k2t["bound_ms"], "bound_by": k2t["bound_by"],
-         "library_ms": k2t["library_ms"],
-         "shape": f"int32 patches={k2t['patches']}"},
-    ]
-    summary = {k: main_out[k] for k in ("n", "build_s", "build_points_per_s", "attach_s")}
-    summary["peak_gib"] = peak / 2**30
-    summary["sweep"] = [{k: p[k] for k in ("l", "recall", "qps", "mean_hops")}
-                        for p in main_out["sweep"]]
-    summary["filtered"] = filt_rows
-    summary["full_route"] = full
-    summary["filtered_profile"] = profiled
-    summary["stream"] = stream
-    summary["runbook"] = runbook
-    summary["quant"] = quant
-    summary["modes"] = modes_out
-    summary["wiki"] = wiki
-    summary["tiered"] = tiered
-    summary["merged"] = merged
-    summary["auto_1m"] = auto_1m
-    summary["service"] = service
-    log("[summary] " + json.dumps(summary))
-    print(json.dumps({"kernels": kernels}))
-    print(smi)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
-    return 0
+        # [dtypes]: float16 and uint8 packed builds and walks (both kernels)
+        dtypes = run_dtypes(device, args.n, gt, main_out["sweep"], k1, k2)
+        for name in ("float16", "uint8"):
+            phase_launches[f"dtypes_{name}_build"] = dtypes[name]["build_launches"]
+            phase_launches[f"dtypes_{name}_search"] = dtypes[name]["launches"]
+        torch.cuda.empty_cache()
+        lap("dtypes")
+        # [bench]: the six families and the abgate's packed walk (K1) after
+        # its attach_packed (K2)
+        bench = run_bench(device, main_dir, k1, k2)
+        phase_launches["bench"] = bench["launches"]
+        torch.cuda.empty_cache()
+        lap("bench")
+        # [sharded]: the full-precision inserts run no kernel; attach_packed
+        # and the delete's refresh run K2, the packed search K1
+        sharded = run_sharded(device, args.n, gt, k1, k2)
+        for key in ("build", "attach", "full", "packed"):
+            phase_launches[f"sharded_{key}"] = sharded[f"{key}_launches"]
+        phase_launches["sharded_delete"] = sharded["delete"]["launches"]
+        phase_launches["sharded_10m"] = sharded["10m"]["launches"]
+        lap("sharded")
+        log(f"[walls] seconds per phase: {json.dumps(walls)}; total {sum(walls.values()):.1f}")
 
+        k1t, k2t = times["k1_rp84_dp128"], times["k2_int32"]
+        kernels = [
+            {"name": "fatrow_expand", "route": "cuda", "source": K1_SOURCE,
+             "replaces": K1_REPLACES, "launches": launches["fatrow_expand"],
+             "filtered_launches": filt_launches["fatrow_expand"],
+             "stream_launches": stream_launches["fatrow_expand"],
+             **{f"{p}_launches": phase_launches[p]["fatrow_expand"] for p in phase_launches},
+             "max_abs_err": max(k1_err, times["k1_err"]),
+             "ms": k1t["ms"], "plain_ms": k1t["plain_ms"],
+             "bound_ms": k1t["bound_ms"], "bound_by": k1t["bound_by"],
+             "library_ms": None,
+             "shape": "rp=84 dp=128 bw=32768",
+             # the dps whose bitwise checks passed in this run
+             "dps_checked": sorted(k1_dps | times["k1_dps"]),
+             **{f"{key}_rp{rp}_dp{dp}": times[f"k1_rp{rp}_dp{dp}"][key]
+                for rp, dp in ((88, 64),) + K1_WIDTHS for key in ("ms", "plain_ms", "bound_ms")}},
+            {"name": "block_patch", "route": "cuda", "source": K2_SOURCE,
+             "replaces": K2_REPLACES, "launches": launches["block_patch"],
+             "filtered_launches": filt_launches["block_patch"],
+             "stream_launches": stream_launches["block_patch"],
+             **{f"{p}_launches": phase_launches[p]["block_patch"] for p in phase_launches},
+             "max_abs_err": max(k2_err, times["k2_err"]),
+             "ms": k2t["ms"], "plain_ms": k2t["plain_ms"],
+             "bound_ms": k2t["bound_ms"], "bound_by": k2t["bound_by"],
+             "library_ms": k2t["library_ms"],
+             "shape": f"int32 patches={k2t['patches']}"},
+        ]
+        summary = {k: main_out[k] for k in ("n", "build_s", "build_points_per_s", "attach_s")}
+        summary["peak_gib"] = peak / 2**30
+        summary["sweep"] = [{k: p[k] for k in ("l", "recall", "qps", "mean_hops")}
+                            for p in main_out["sweep"]]
+        summary["filtered"] = filt_rows
+        summary["full_route"] = full
+        summary["filtered_profile"] = profiled
+        summary["stream"] = stream
+        summary["runbook"] = runbook
+        summary["quant"] = quant
+        summary["modes"] = modes_out
+        summary["wiki"] = wiki
+        summary["tiered"] = tiered
+        summary["merged"] = merged
+        summary["auto_1m"] = auto_1m
+        summary["service"] = service
+        summary["dtypes"] = dtypes
+        summary["bench"] = bench
+        summary["sharded"] = sharded
+        summary["walls"] = walls
+        log("[summary] " + json.dumps(summary))
+        print(json.dumps({"kernels": kernels}))
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
+
+    finally:
+        shutil.rmtree(main_dir)
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -2,11 +2,12 @@
 `GraphIndex` on a chosen device out.
 
 The layouts are the same in both packages (int32 ids with -1 padding, the
-``[(cap+1)*nwr, 128]`` int32 fat-row table with its dump row, float32
-vectors, the quantized code tables), so the arrays are copied as they are;
-uint32 words (labels, spherical codes) are carried as int32 with the same
-bits.  Pulling the arrays out of a JAX index is the caller's business:
-this package never imports JAX.
+``[(cap+1)*nwr, 128]`` int32 fat-row table with its dump row, the
+vectors in their stored dtype, the quantized code tables), so the arrays
+are copied as they are; uint32 words (labels, spherical codes) are carried
+as int32 with the same bits, bfloat16 vectors as their uint16 bits where
+numpy has no bfloat16 (no ml_dtypes).  Pulling the arrays out of a JAX
+index is the caller's business: this package never imports JAX.
 
 Quantized attachments are carried with their trained state (PQ pivots, SQ
 ranges, the spherical rotation), so the port walks the same codes without
@@ -25,7 +26,9 @@ from diskann_tpu_torch.filters.labels import LabelSet
 from diskann_tpu_torch.graph.config import GraphConfig
 from diskann_tpu_torch.graph.index import GraphIndex
 from diskann_tpu_torch.graph.packed import PackedState, n_wrows
-from diskann_tpu_torch.graph.state import GraphArrays
+from diskann_tpu_torch.graph.state import (
+    GraphArrays, dtype_name, vectors_from_host, vectors_to_host,
+)
 from diskann_tpu_torch.ops.distance import Metric
 from diskann_tpu_torch.quant.minmax import MinMaxQuantizer
 from diskann_tpu_torch.quant.pq import PQ
@@ -33,7 +36,6 @@ from diskann_tpu_torch.quant.scalar import ScalarQuantizer
 from diskann_tpu_torch.quant.spherical import SphericalQuantizer
 
 _GRAPH_DTYPES = {
-    "vectors": torch.float32,
     "sq_norms": torch.float32,
     "adjacency": torch.int32,
     "degrees": torch.int32,
@@ -84,6 +86,7 @@ def graph_index_from_arrays(
     spherical: dict | None = None,
     cached_start=None,
     hbm_vectors_dropped: bool = False,
+    dtype=None,
     device=None,
     **index_kwargs,
 ) -> GraphIndex:
@@ -104,8 +107,10 @@ def graph_index_from_arrays(
     cached_start: the pinned start point ([S] int array) or None;
     hbm_vectors_dropped: the graph's vectors were dropped from the device
     (``graph["vectors"]`` is then the [1, d] placeholder), as in a tiered
-    index.  index_kwargs go to `GraphIndex` (batch sizes, backedge cap).  The
-    index goes on ``device``, by default the CUDA card."""
+    index.  dtype: the vectors' dtype, by default ``graph["vectors"]``'s own
+    (give "bfloat16" for uint16 bits).  index_kwargs go to `GraphIndex`
+    (batch sizes, backedge cap).  The index goes on ``device``, by default
+    the CUDA card."""
     device = default_device(device)
     cfg = dict(config)
     cfg["metric"] = Metric(cfg["metric"])
@@ -116,14 +121,16 @@ def graph_index_from_arrays(
         return {k: torch.as_tensor(np.array(arrays[k]), device=device).to(dt)
                 for k, dt in dtypes.items()}
 
-    g = GraphArrays(**put(graph, _GRAPH_DTYPES))
+    g = GraphArrays(vectors=vectors_from_host(graph["vectors"], dtype).to(device),
+                    **put(graph, _GRAPH_DTYPES))
     cap, r_slack = g.adjacency.shape
     if r_slack != cfg.max_degree_with_slack:
         raise ValueError(
             f"adjacency width {r_slack} != max_degree_with_slack "
             f"{cfg.max_degree_with_slack} of the config"
         )
-    idx = GraphIndex(g.dim, cfg, capacity=1, device=device, **index_kwargs)
+    idx = GraphIndex(g.dim, cfg, capacity=1, dtype=g.vectors.dtype, device=device,
+                     **index_kwargs)
     idx.state = g
     if packed is not None:
         p = PackedState(**put(packed, _PACKED_DTYPES), r_pack=int(packed["r_pack"]))
@@ -198,8 +205,75 @@ def index_arrays(idx: GraphIndex) -> dict:
         attach["spherical"].update(rotation=np_(idx.sph.rotation), n_bits=int(idx.sph.n_bits))
     start = idx._cached_start
     return dict(config=dataclasses.asdict(idx.config),
-                graph={f: np_(getattr(idx.state, f)) for f in idx.state._fields},
+                graph={f: np_(getattr(idx.state, f)) for f in _GRAPH_DTYPES}
+                | {"vectors": vectors_to_host(idx.state.vectors)},
+                dtype=dtype_name(idx.dtype),
                 packed=packed, n=idx.n, n_deleted=idx.n_deleted,
                 free_slots=list(idx.free_slots), labels=labels,
                 cached_start=None if start is None else np_(start),
                 hbm_vectors_dropped=idx._hbm_vectors_dropped, **attach)
+
+
+def sharded_index_from_arrays(
+    *,
+    config: dict,
+    stacked: dict,
+    ext,
+    ns,
+    starts,
+    next_ext: int,
+    n_deleted: int = 0,
+    free_total: int = 0,
+    packed: dict | None = None,
+    labels: dict | None = None,
+    dtype=None,
+    device=None,
+):
+    """Build a port `ShardedGraphIndex` from the reference's sharded index.
+
+    config: the `GraphConfig` fields (``metric`` as a `Metric` or its
+    value); stacked: the stacked `GraphArrays` fields, ``[S, cap, ...]``
+    numpy arrays; ext [S, cap], ns [S], starts [S, 1]: the external ids,
+    high-water marks and start points; next_ext, n_deleted, free_total: the
+    counters.  packed: the stacked `PackedState` fields (``[S, ...]``,
+    ``proj`` / ``pscale`` / ``pbias2`` stacked too, as the reference holds
+    them) plus ``r_pack``, or None; labels: ``{"labels_per_ext": list,
+    "vocab": dict, "bits": [S, cap, n_words] uint32}``, or None.  dtype:
+    the vectors' dtype, by default the array's own.  The index goes on
+    ``device``, by default the CUDA card."""
+    from diskann_tpu_torch.parallel.sharded import ShardedGraphIndex
+
+    device = default_device(device)
+    cfg = dict(config)
+    cfg["metric"] = Metric(cfg["metric"])
+    cfg = GraphConfig(**cfg)
+    ext = np.asarray(ext)
+    n_shards, cap = ext.shape
+    vectors = vectors_from_host(stacked["vectors"], dtype).to(device)
+    idx = ShardedGraphIndex(n_shards, vectors.shape[2], cfg, cap_per_shard=1,
+                            dtype=vectors.dtype, device=device)
+    g = GraphArrays(vectors=vectors, **{
+        k: torch.as_tensor(np.array(stacked[k]), device=device).to(dt)
+        for k, dt in _GRAPH_DTYPES.items()})
+    if tuple(g.adjacency.shape) != (n_shards, cap, cfg.max_degree_with_slack):
+        raise ValueError(f"adjacency {tuple(g.adjacency.shape)} does not match "
+                         f"{n_shards} shards of {cap} x {cfg.max_degree_with_slack}")
+    idx.stacked = g
+    idx.cap_per_shard = cap
+    idx.ext = _tensor(ext, torch.int32, device)
+    idx.ns = np.asarray(ns, np.int64).copy()
+    idx.starts = _tensor(starts, torch.int32, device).reshape(n_shards, 1)
+    idx.next_ext = int(next_ext)
+    idx.n_deleted = int(n_deleted)
+    idx._free_total = int(free_total)
+    if packed is not None:
+        idx.packed = [
+            PackedState(**{f: _tensor(np.asarray(packed[f])[s], dt, device)
+                           for f, dt in _PACKED_DTYPES.items()},
+                        r_pack=int(packed["r_pack"]))
+            for s in range(n_shards)]
+    if labels is not None:
+        idx._labels_per_ext = list(labels["labels_per_ext"])
+        idx.label_vocab = dict(labels["vocab"])
+        idx.label_bits = _tensor(labels["bits"], torch.int32, device)
+    return idx

@@ -30,7 +30,7 @@ from diskann_tpu_torch.graph.config import GraphConfig
 from diskann_tpu_torch.graph.prune import robust_prune
 from diskann_tpu_torch.graph.scorers import packed_router_starts, packed_scorer
 from diskann_tpu_torch.graph.search import beam_search, beam_search_scored
-from diskann_tpu_torch.graph.state import GraphArrays, set_vectors
+from diskann_tpu_torch.graph.state import GraphArrays, set_vectors, to_stored
 from diskann_tpu_torch.ops.distance import pairwise_distance
 from diskann_tpu_torch.ops.topk import SENTINEL, sort_with
 
@@ -54,19 +54,20 @@ def chunked_robust_prune(
     chunk: int = 0,
 ):
     """RobustPrune M pools, chunked over rows only as far as the
-    [chunk, C, d] candidate-vector gather demands.  Returns (ids [M,
+    [chunk, C, d] candidate-vector gather demands.  Vectors of another
+    dtype are lifted to float32 as they are gathered.  Returns (ids [M,
     degree], dists [M, degree], count [M])."""
     m, c = cand_ids.shape
     if chunk <= 0:
-        per_row = c * vectors.shape[1] * vectors.element_size() * 2
+        per_row = c * vectors.shape[1] * 4 * 2
         chunk = max(64, min(m, _PRUNE_MEM_BUDGET // max(per_row, 1)))
     n = vectors.shape[0]
     outs = []
     for s in range(0, m, chunk):
         ci = cand_ids[s:s + chunk]
-        cvec = vectors[ci.long().clamp(0, n - 1)]
+        cvec = vectors[ci.long().clamp(0, n - 1)].float()
         outs.append(robust_prune(
-            p_vecs[s:s + chunk], ci, None if cand_d is None else cand_d[s:s + chunk],
+            p_vecs[s:s + chunk].float(), ci, None if cand_d is None else cand_d[s:s + chunk],
             cvec, self_ids[s:s + chunk], config, degree=degree,
         ))
     return tuple(torch.cat(parts) for parts in zip(*outs))
@@ -80,7 +81,7 @@ class InsertStats(NamedTuple):
 def insert_batch(
     state: GraphArrays,
     slot_ids: torch.Tensor,     # [M] i32 target slots (-1 for padding rows)
-    new_vecs: torch.Tensor,     # [M, d] f32
+    new_vecs: torch.Tensor,     # [M, d] f32 (cast to the stored dtype)
     row_valid: torch.Tensor,    # [M] bool
     start_ids: torch.Tensor,    # [S] i32
     config: GraphConfig,
@@ -106,6 +107,10 @@ def insert_batch(
     inf = float("inf")
 
     new_vecs = torch.where(row_valid[:, None], new_vecs.float(), 0.0)
+    # the full walk and the prune see the rows as stored (the packed
+    # encode and the intra-batch distances take them unrounded, as in the
+    # reference)
+    stored_vecs = to_stored(new_vecs, state.vectors.dtype).float()
     new_ids = torch.where(row_valid, slot_ids, -1).to(torch.int32)
     # the pool records W beam nodes per hop: right-size it to the hop cap
     mh_eff = config.build_max_hops or config.max_hops
@@ -122,7 +127,7 @@ def insert_batch(
     # ---------------- phase 2: candidate generation ----------------
     if packed is None:
         res = beam_search(
-            state.vectors, state.sq_norms, state.adjacency, start_ids, new_vecs,
+            state.vectors, state.sq_norms, state.adjacency, start_ids, stored_vecs,
             metric=metric, l_search=config.l_build, beam_width=config.beam_width,
             max_hops=mh_eff, pool_capacity=pool_capacity, record_pool=True,
             query_valid=row_valid,
@@ -181,7 +186,7 @@ def insert_batch(
 
     # the packed walk's distances are approximate: the prune recomputes them
     out_ids, _, out_n = chunked_robust_prune(
-        state.vectors, new_vecs, cand_ids,
+        state.vectors, stored_vecs, cand_ids,
         None if packed is not None else cand_d[:, :c_cap], new_ids, config,
         degree=r,
     )

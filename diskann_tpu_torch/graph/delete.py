@@ -226,7 +226,7 @@ def _visited_topk(index, ids, k_value: int, l_value: int | None):
     cap = st.capacity
     l = l_value or max(k_value, cfg.l_build)
     res = beam_search(
-        st.vectors, st.sq_norms, st.adjacency, index._start(), st.vectors[ids],
+        st.vectors, st.sq_norms, st.adjacency, index._start(), st.vectors[ids].float(),
         metric=cfg.metric, l_search=l, beam_width=cfg.beam_width,
         max_hops=cfg.max_hops,
     )

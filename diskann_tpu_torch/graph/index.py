@@ -235,10 +235,15 @@ class GraphIndex:
         insert_batch_size: int = 1024,
         search_batch_size: int = 1024,
         build_backedge_src_cap: int = 64,
+        dtype=torch.float32,
         device=None,
     ):
+        """``dtype``: how the vectors are stored (`graph_state.VECTOR_DTYPES`:
+        float32, float16, bfloat16, int8 or uint8, as a torch or numpy
+        dtype or its name); every distance lifts them to float32."""
         self.config = config or GraphConfig()
         self.dim = dim
+        self.dtype = graph_state.vector_dtype(dtype)
         self.device = default_device(device)
         self.insert_batch_size = insert_batch_size
         self.search_batch_size = search_batch_size
@@ -253,7 +258,7 @@ class GraphIndex:
         self.labels: LabelSet | None = None
         self.state = graph_state.alloc(
             _round_up(capacity, insert_batch_size), dim,
-            self.config.max_degree_with_slack, device=self.device,
+            self.config.max_degree_with_slack, self.dtype, device=self.device,
         )
         self.last_insert_stats: dict | None = None
         self.last_delete_stats: dict | None = None
@@ -305,7 +310,8 @@ class GraphIndex:
         `packed_dp`) up to date from the first batch on and walks it, and
         the layout then serves `search(mode="packed")`.  A tensor's device
         is the index's device unless `device` says otherwise; numpy input
-        goes to the CUDA card by default."""
+        goes to the CUDA card by default.  ``dtype`` (kwargs) is the stored
+        vector dtype, as for `GraphIndex`."""
         if build_mode not in ("full", "packed"):
             raise ValueError(f"unknown build_mode {build_mode!r}")
         if isinstance(vectors, torch.Tensor):
@@ -467,7 +473,7 @@ class GraphIndex:
         Every table stays writable: the reference's read-only guard above
         2^31 words exists because its scatters index in int32, and the
         port indexes in int64."""
-        sample = self.state.vectors[: min(1 << 16, self.n)].cpu().numpy()
+        sample = self.state.vectors[: min(1 << 16, self.n)].float().cpu().numpy()
         proj, pscale, pbias2 = packed_mod.train_packed(
             sample, min(dp or self.dim, self.dim), self.config.metric,
             sigma=sigma, device=self.device,
@@ -496,7 +502,7 @@ class GraphIndex:
         """Attach a product quantizer (``pq``, or one trained here on the
         vectors with ``generator`` or ``seed``) and encode every row below
         ``n``: enables ``search(mode="pq")``.  n_centers=16 is 4-bit PQ."""
-        vecs = self.state.vectors[: self.n]
+        vecs = self.state.vectors[: self.n].float()
         if pq is None:
             pq = train_pq(vecs, n_chunks=n_chunks, n_centers=n_centers,
                           seed=seed, generator=generator)
@@ -509,7 +515,7 @@ class GraphIndex:
     def attach_sq(self, *, n_bits: int = 8, sigma: float = 4.0) -> None:
         """Train an int8 scalar quantizer on the vectors and encode every
         row below ``n``: enables ``search(mode="sq")``."""
-        vecs = self.state.vectors[: self.n]
+        vecs = self.state.vectors[: self.n].float()
         sq = train_scalar(vecs, n_bits=n_bits, sigma=sigma)
         codes = torch.full((self.state.capacity, self.dim), 128, dtype=torch.uint8,
                            device=self.device)
@@ -561,7 +567,7 @@ class GraphIndex:
         self._cached_start = self._start()
         self._router_rows_cache = None
         self.state = self.state._replace(
-            vectors=torch.zeros((1, self.dim), device=self.device),
+            vectors=torch.zeros((1, self.dim), dtype=self.dtype, device=self.device),
             sq_norms=torch.zeros((1,), device=self.device),
         )
         self._hbm_vectors_dropped = True
@@ -1071,7 +1077,7 @@ class GraphIndex:
         config = dataclasses.asdict(self.config)
         config["metric"] = self.config.metric.value
         meta = {
-            "n": n, "dim": self.dim, "dtype": "float32",
+            "n": n, "dim": self.dim, "dtype": graph_state.dtype_name(self.dtype),
             "n_deleted": self.n_deleted,
             "free_slots": [int(i) for i in self.free_slots],
             "hbm_vectors_dropped": self._hbm_vectors_dropped,
@@ -1084,7 +1090,7 @@ class GraphIndex:
         if not self._hbm_vectors_dropped:
             # the norms are kept, not recomputed: "identical results after
             # a reload" is the contract
-            arrays["vectors"] = host(st.vectors[:n])
+            arrays["vectors"] = graph_state.vectors_to_host(st.vectors[:n])
             arrays["sq_norms"] = host(st.sq_norms[:n])
         if self._cached_start is not None:
             arrays["cached_start"] = host(self._cached_start)
@@ -1118,7 +1124,8 @@ class GraphIndex:
         if self.labels is not None:
             meta["labels"] = {"vocab": self.labels.vocab}
             arrays["labels_bits"] = host(self.labels.bits[:n]).view(np.uint32)
-        save_record(path, kind="graph_index", meta=meta, arrays=arrays)
+        save_record(path, kind="graph_index", meta=meta, arrays=arrays,
+                    bfloat16=("vectors",) if self.dtype == torch.bfloat16 else ())
 
     @classmethod
     def load(cls, path: str, device=None, **kwargs) -> "GraphIndex":
@@ -1127,13 +1134,11 @@ class GraphIndex:
         rounded up to the insert batch, so later inserts grow the tables
         as the reference's do; every `GraphConfig` field present is
         restored (the reference's loader reads eight).  kwargs go to
-        `GraphIndex` (batch sizes, backedge cap).  Only float32 vectors are
-        ported: another dtype raises `NotImplementedError`."""
+        `GraphIndex` (batch sizes, backedge cap); the vectors keep the
+        record's dtype unless ``dtype`` says otherwise."""
         manifest, arrays = load_record(path)
         meta = manifest["meta"]
-        if meta.get("dtype", "float32") != "float32":
-            raise NotImplementedError(
-                f"vector dtype {meta['dtype']!r}: the port holds float32 vectors only")
+        kwargs.setdefault("dtype", meta.get("dtype", "float32"))
         names = {f.name for f in dataclasses.fields(GraphConfig)}
         c = {k: v for k, v in meta["config"].items() if k in names}
         c["metric"] = Metric(c["metric"])
@@ -1163,15 +1168,18 @@ class GraphIndex:
         st.degrees[:n].copy_(host("degrees"))
         if meta.get("hbm_vectors_dropped", False):
             idx._hbm_vectors_dropped = True
-            idx.state = st._replace(vectors=torch.zeros((1, idx.dim), device=dev),
+            idx.state = st._replace(vectors=torch.zeros((1, idx.dim), dtype=idx.dtype,
+                                                        device=dev),
                                     sq_norms=torch.zeros((1,), device=dev))
         else:
-            st.vectors[:n].copy_(host("vectors"))
+            st.vectors[:n].copy_(graph_state.vectors_from_host(
+                arrays["vectors"], meta.get("dtype", "float32")))
             if "sq_norms" in arrays:
                 st.sq_norms[:n].copy_(host("sq_norms"))
             else:
                 st.sq_norms[:n] = squared_norms(st.vectors[:n])
-            st.vec_sum.copy_(torch.where(st.valid[:n, None], st.vectors[:n], 0.0).sum(0))
+            st.vec_sum.copy_(torch.where(st.valid[:n, None], st.vectors[:n].float(),
+                                         0.0).sum(0))
         if "cached_start" in arrays:
             idx._cached_start = host("cached_start").to(dev)
         elif "auto_start" in arrays:

@@ -258,7 +258,7 @@ def determinant_rerank(index, queries, k: int = 10, *, l_search: int | None = No
     d, ids, stats = index.search(queries, k=l, l_search=l, mode=mode)
     dev = index.device
     idt = torch.as_tensor(ids, device=dev)
-    vecs = index.state.vectors[idt.long().clamp(0, index.state.capacity - 1)]
+    vecs = index.state.vectors[idt.long().clamp(0, index.state.capacity - 1)].float()
     sel = determinant_diversity_device(vecs, torch.as_tensor(d, device=dev),
                                        idt >= 0, k, power=power, eta=eta)
     sel = sel.cpu().numpy()

@@ -2,7 +2,8 @@
 
 Fixed-capacity dense tensors on one device:
 
-- ``vectors  [cap, d]`` float32 vector data,
+- ``vectors  [cap, d]`` vector data, float32 by default; float16, bfloat16,
+  int8 and uint8 are also held, and every distance lifts them to float32,
 - ``sq_norms [cap]``    squared norms (L2/cosine matmul form),
 - ``adjacency[cap, R_slack] int32`` fixed-degree padded graph, -1 = empty,
 - ``degrees  [cap] int32`` live out-degree per node,
@@ -22,6 +23,66 @@ import numpy as np
 import torch
 
 from diskann_tpu_torch.ops.distance import squared_norms
+
+# the vector dtypes the reference stores, by the name its records use
+VECTOR_DTYPES = {
+    "float32": torch.float32,
+    "float16": torch.float16,
+    "bfloat16": torch.bfloat16,
+    "int8": torch.int8,
+    "uint8": torch.uint8,
+}
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """The name a record gives ``dtype`` (numpy's, as the reference writes)."""
+    return str(dtype).removeprefix("torch.")
+
+
+def vector_dtype(dtype) -> torch.dtype:
+    """A torch dtype, a numpy dtype or a name (``"bfloat16"``, ...) as one
+    of the torch dtypes in `VECTOR_DTYPES`."""
+    if isinstance(dtype, torch.dtype):
+        name = dtype_name(dtype)
+    elif isinstance(dtype, str):
+        name = dtype
+    else:
+        name = np.dtype(dtype).name
+    if name not in VECTOR_DTYPES:
+        raise ValueError(f"vector dtype {dtype!r}: one of {sorted(VECTOR_DTYPES)}")
+    return VECTOR_DTYPES[name]
+
+
+def to_stored(vecs: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``vecs`` cast to the stored ``dtype`` as the reference casts: an
+    integer dtype saturates at its range (a torch cast would wrap around),
+    then rounds toward zero."""
+    if not dtype.is_floating_point:
+        info = torch.iinfo(dtype)
+        vecs = vecs.clamp(info.min, info.max)
+    return vecs.to(dtype)
+
+
+def vectors_to_host(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t``; bfloat16 as its raw uint16 bits, since numpy
+    knows that type only through ml_dtypes."""
+    if t.dtype == torch.bfloat16:
+        return t.cpu().view(torch.int16).numpy().view(np.uint16)
+    return t.cpu().numpy()
+
+
+def vectors_from_host(a, dtype=None) -> torch.Tensor:
+    """A CPU tensor of ``dtype`` (default: ``a``'s own) from numpy array
+    ``a``.  A bfloat16 array, with ml_dtypes or as its raw uint16 bits
+    when ``dtype`` is bfloat16, keeps its bits."""
+    a = np.ascontiguousarray(a)
+    bf16 = a.dtype.name == "bfloat16" or (
+        dtype is not None and vector_dtype(dtype) == torch.bfloat16
+        and a.dtype == np.uint16)
+    if bf16:
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    t = torch.from_numpy(a.copy())
+    return t if dtype is None else t.to(vector_dtype(dtype))
 
 
 class GraphArrays(NamedTuple):
@@ -45,9 +106,10 @@ class GraphArrays(NamedTuple):
         return self.adjacency.shape[1]
 
 
-def alloc(capacity: int, dim: int, r_slack: int, *, device=None) -> GraphArrays:
+def alloc(capacity: int, dim: int, r_slack: int, dtype=torch.float32, *,
+          device=None) -> GraphArrays:
     return GraphArrays(
-        vectors=torch.zeros((capacity, dim), device=device),
+        vectors=torch.zeros((capacity, dim), dtype=vector_dtype(dtype), device=device),
         sq_norms=torch.zeros((capacity,), device=device),
         adjacency=torch.full((capacity, r_slack), -1, dtype=torch.int32,
                              device=device),
@@ -76,18 +138,20 @@ def set_vectors(state: GraphArrays, slot_ids, vecs, row_valid=None) -> GraphArra
     """Write a batch of vectors at ``slot_ids`` in place (phase 1 of
     multi_insert).  Rows masked out by ``row_valid`` are not written: the
     reference aims them at index ``cap`` and lets the scatter drop them,
-    which a torch scatter would refuse, so they are filtered here."""
-    vecs = vecs.float()
+    which a torch scatter would refuse, so they are filtered here.  The
+    rows are cast to the stored dtype first; the norms and the running sum
+    are taken from the cast values, in float32."""
+    vecs = to_stored(vecs, state.vectors.dtype)
     if row_valid is None:
         row_valid = torch.ones(vecs.shape[0], dtype=torch.bool,
                                device=vecs.device)
-    vecs = torch.where(row_valid[:, None], vecs, 0.0)
+    vecs = torch.where(row_valid[:, None], vecs, 0)
     keep = row_valid & (slot_ids >= 0) & (slot_ids < state.capacity)
     w = slot_ids[keep].long()
     state.vectors[w] = vecs[keep]
     state.sq_norms[w] = squared_norms(vecs[keep])
     state.valid[w] = True
-    state.vec_sum.add_(vecs.sum(0))
+    state.vec_sum.add_(vecs.float().sum(0))
     return state
 
 
@@ -95,7 +159,7 @@ def medoid(state: GraphArrays, n: int) -> torch.Tensor:
     """Index of the live vector closest to the running mean, as a 0-d
     int32 tensor."""
     mean = state.vec_sum / max(float(n), 1.0)
-    d2 = state.sq_norms - 2.0 * (state.vectors @ mean)
+    d2 = state.sq_norms - 2.0 * (state.vectors.float() @ mean)
     d2 = torch.where(state.valid, d2, float("inf"))
     return torch.argmin(d2).to(torch.int32)
 

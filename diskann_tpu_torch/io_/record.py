@@ -16,7 +16,11 @@ import numpy as np
 FORMAT_VERSION = 1
 
 
-def save_record(path: str, kind: str, meta: dict, arrays: dict[str, np.ndarray]):
+def save_record(path: str, kind: str, meta: dict, arrays: dict[str, np.ndarray],
+                *, bfloat16=()):
+    """``bfloat16``: names of arrays that hold bfloat16 values as their raw
+    uint16 bits; the manifest names their dtype "bfloat16", as numpy with
+    ml_dtypes does."""
     os.makedirs(path, exist_ok=True)
     artifacts = {}
     for name, arr in arrays.items():
@@ -25,7 +29,7 @@ def save_record(path: str, kind: str, meta: dict, arrays: dict[str, np.ndarray])
         arr.tofile(os.path.join(path, fname))
         artifacts[name] = {
             "file": fname,
-            "dtype": str(arr.dtype),
+            "dtype": "bfloat16" if name in bfloat16 else str(arr.dtype),
             "shape": list(arr.shape),
         }
     manifest = {
@@ -63,7 +67,9 @@ def load_record(path: str, *, mmap: bool = False):
     arrays = {}
     for name, info in manifest["artifacts"].items():
         fpath = os.path.join(path, info["file"])
-        dtype = np.dtype(info["dtype"])
+        # bfloat16 comes back as its raw uint16 bits: numpy knows the type
+        # only through ml_dtypes
+        dtype = np.uint16 if info["dtype"] == "bfloat16" else np.dtype(info["dtype"])
         shape = tuple(info["shape"])
         if mmap:
             arrays[name] = np.memmap(fpath, dtype=dtype, mode="r", shape=shape)

@@ -45,6 +45,10 @@ def test_the_scan_sees_the_package():
     for path in ("trace.py", "testing.py", "service.py", "server.py", "ops/multivec.py",
                  "tools/__init__.py", "tools/__main__.py", "flat/index.py"):
         assert f"diskann_tpu_torch/{path}" in FILES
+    for path in ("bench/stats.py", "bench/registry.py", "bench/abgate.py", "bench/kernels.py",
+                 "bench/__main__.py", "bench/harness.py", "bench/recall.py",
+                 "parallel/sharded.py", "convert.py"):
+        assert f"diskann_tpu_torch/{path}" in FILES
     roots = set(_imported_roots(ast.parse("import jax.numpy\nfrom diskann_tpu.x import y")))
     assert roots == {"jax", "diskann_tpu"}
 
