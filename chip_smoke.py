@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA card.
 
-    python3 chip_smoke.py [--n 1000000]
+    python3 chip_smoke.py [--n 1000000] [--only sharded]
 
 Phases, each printing one line:
 
@@ -117,20 +117,23 @@ Phases, each printing one line:
    at dp=128): an A/A run and an A/B run of merge_trunc off against on, 3
    reps a side, each rep bracketed by the bf16 probe; fails if a command
    fails, a family is missing or the abgate's packed walk launches no K1;
-19. [sharded] `ShardedGraphIndex` on the one card: the main path's 1M x 128
-   data in 4 shards by the k-means partition with overlap 2, inserts of
-   8192 (R=64, L=100, alpha=1.2), attach_packed(dp=128), full and packed
-   search at L = 16..100, the filtered "cat0" search, a delete of 50,000
-   external ids, save / load, and `sharded_flat_search` against
-   `FlatIndex`; fails unless the packed walk reaches recall@10 >= 0.95
-   with K1 launched, K2 launches in the delete, no deleted id and no
-   duplicate copy comes back, the reload and the flat search give
-   identical ids.  Then the JAX package's sharded scale,
-   `scripts/bench_sharded10m.py`'s bookkeeping at 10M x 32 over 8 shards:
-   a synthetic ring graph adopted on the card, insert 8192 with overlap 2,
-   delete 8192, re-insert 8192 (freed slots recycled), save and load
-   (identical ids), each time beside `SHARDED10M_r04.json`'s CPU-mesh
-   figures.
+19. [sharded] `ShardedGraphIndex` spread over every visible card (shard s
+   on card s % the cards; all on the one card of a one-card host): the
+   main path's 1M x 128 data in 4 shards by the k-means partition with
+   overlap 2, inserts of 8192 (R=64, L=100, alpha=1.2),
+   attach_packed(dp=128), full and packed search at L = 16..100, the
+   filtered "cat0" search, a delete of 50,000 external ids, save and a
+   load onto card 0 alone, and `sharded_flat_search` over the same cards
+   against `FlatIndex`; fails unless the packed walk reaches recall@10 >=
+   0.95, every card that holds a shard launches K2 in the attach and the
+   delete and K1 in the packed walk, no deleted id and no duplicate copy
+   comes back, and the one-card reload and the flat search give identical
+   ids.  Then the JAX package's sharded scale,
+   `scripts/bench_sharded10m.py`'s bookkeeping at 10M x 32 over 8 shards
+   on the same cards: a synthetic ring graph adopted on the cards, insert
+   8192 with overlap 2, delete 8192, re-insert 8192 (freed slots
+   recycled), save and load onto the same placement (identical ids), each
+   time beside `SHARDED10M_r04.json`'s CPU-mesh figures.
 
 Phase 4 also builds a packed index of 20k 8-d points (dp=8) and attaches
 dp=256 to 2k x 256-d data, each searched packed on the card and on its CPU
@@ -161,6 +164,9 @@ traces one more delete and splits its device time between discovery,
 `fill_rows` and `refresh_rows` (of which K2); phase 13 splits a tiered
 call between the walk, the wait on the host gather, the row upload and
 the rerank.
+
+On a host with several cards, phases 3 and 4's bitwise kernel checks run
+on every card.  Every timed span drains every card on both ends.
 
 Then a JSON line with the kernels, the `nvidia-smi` name/power-limit line,
 and last the result line `{"ok": true, "device": {...}}`.  Any failed phase
@@ -263,8 +269,8 @@ DTYPE_SMALL_SHARE = 0.999
 # [bench]: the abgate's shared index size, its A side (B is the same with
 # merge_trunc on) and its reps per side
 BENCH_N, BENCH_SIDE, BENCH_REPS = 1_000_000, "l=24,mh=6,rl=12,mtrunc=0", 3
-# [sharded]: the main path's data over SHARD_S shards on the one card; the
-# JAX package's 10M x 32 bookkeeping scale over 8 shards
+# [sharded]: the main path's data over SHARD_S shards on the visible cards;
+# the JAX package's 10M x 32 bookkeeping scale over 8 shards
 SHARD_S, SHARD_L, SHARD_DELETE = 4, (16, 24, 40, 64, 100), 50_000
 SH10M_N, SH10M_D, SH10M_S, SH10M_R, SH10M_BATCH = 10_000_000, 32, 8, 16, 8192
 # `SHARDED10M_r04.json` (the JAX package on an 8-device CPU mesh), seconds
@@ -281,9 +287,20 @@ def log(msg: str) -> None:
 
 
 def sync(torch, device) -> None:
-    """Wait for the card (a no-op on the CPU, where the phases rehearse)."""
+    """Wait for every card (a no-op on the CPU, where the phases rehearse):
+    a sharded index spans several, and a clock stopped when one card is
+    drained would miss the others' work."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        for card in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(card)
+
+
+def shard_cards(torch, device, n_shards: int) -> list:
+    """The [sharded] phase's placement: shard ``s`` on card ``s % the
+    visible cards`` (every shard on ``device`` off the card)."""
+    if device.type != "cuda":
+        return [device] * n_shards
+    return [torch.device("cuda", s % torch.cuda.device_count()) for s in range(n_shards)]
 
 
 def bench_cats(n: int):
@@ -349,10 +366,10 @@ def check_fatrow_expand(torch, device) -> tuple[int, set]:
                             dtype=torch.int8).to(device)
         got = fatrow_expand(rows, beam, qiw, rp=rp, dp=dp)
         want = fatrow_expand_plain(rows, beam, qiw, rp=rp, dp=dp)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(device)
         err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
         same = all(torch.equal(g, w) for g, w in zip(got, want))
-        log(f"[k1] fatrow_expand rp={rp} dp={dp} n={n} bw={bw}: "
+        log(f"[k1] {device} fatrow_expand rp={rp} dp={dp} n={n} bw={bw}: "
             f"tolerance=bitwise bitwise_equal={same} max_abs_err={err}")
         if not same:
             raise RuntimeError(f"fatrow_expand disagrees with its plain version at rp={rp} dp={dp}")
@@ -382,11 +399,11 @@ def check_block_patch(torch, device) -> int:
         idx = idx.to(device)
         got = block_patch(table.clone(), idx, vals)
         want = block_patch_plain(table.clone(), idx, vals)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(device)
         live = slice(0, dump * 8)                # the dump block is garbage by design
         err = int((got[live].long() - want[live].long()).abs().max())
         same = torch.equal(got[live], want[live])
-        log(f"[k2] block_patch {dt}: blocks={n_blocks} patches={g} "
+        log(f"[k2] {device} block_patch {dt}: blocks={n_blocks} patches={g} "
             f"tolerance=bitwise bitwise_equal={same} max_abs_err={err}")
         if not same:
             raise RuntimeError(f"block_patch disagrees with its plain version ({dt})")
@@ -1012,9 +1029,18 @@ def take_launches(k1, k2, phase: str | None = None) -> dict:
     ``phase`` when given); the counts restart at 0."""
     out = {"fatrow_expand": k1.launches, "block_patch": k2.launches}
     k1.launches = k2.launches = 0
+    k1.launches_by_device.clear()
+    k2.launches_by_device.clear()
     if phase:
         log(f"[{phase}] kernel launches: {out}")
     return out
+
+
+def card_launches(k1, k2, cards) -> dict:
+    """Both kernels' launches since the last `take_launches`, per card of
+    ``cards`` (CUDA device indices)."""
+    return {c: {"fatrow_expand": k1.launches_by_device.get(c, 0),
+                "block_patch": k2.launches_by_device.get(c, 0)} for c in cards}
 
 
 def lap_clock():
@@ -2599,13 +2625,17 @@ def run_bench(device, idx_dir: str, k1, k2, *, example: str | None = None) -> di
 
 
 def run_sharded(device, n: int, gt, k1, k2) -> dict:
-    """[sharded] The main path's data over SHARD_S shards on the one card:
-    the k-means partition with overlap 2, inserts of 8192 rows with the
-    main path's settings, attach_packed(dp=128), full and packed search at
-    SHARD_L (the packed walk must reach TARGET_RECALL and launch K1), the
-    filtered "cat0" search, a delete of SHARD_DELETE external ids (none may
-    come back), save / load (identical ids), and `sharded_flat_search`
-    against `FlatIndex` (identical ids).  Then `run_sharded_10m`."""
+    """[sharded] The main path's data over SHARD_S shards spread over the
+    visible cards (`shard_cards`): the k-means partition with overlap 2,
+    inserts of 8192 rows with the main path's settings,
+    attach_packed(dp=128), full and packed search at SHARD_L (the packed
+    walk must reach TARGET_RECALL), the filtered "cat0" search, a delete of
+    SHARD_DELETE external ids (none may come back), save and a load onto
+    card 0 alone (identical ids at L=40 on both placements), and
+    `sharded_flat_search` over the same cards against `FlatIndex`
+    (identical ids).  Every card that holds a shard must launch K2 in the
+    attach and the delete and K1 in the packed walk.  Then
+    `run_sharded_10m`."""
     import shutil
     import tempfile
 
@@ -2619,7 +2649,27 @@ def run_sharded(device, n: int, gt, k1, k2) -> dict:
         ShardedGraphIndex, kmeans_partition, sharded_flat_search,
     )
 
-    out = {"n": n, "shards": SHARD_S, "sweep": []}
+    cards = shard_cards(torch, device, SHARD_S)
+    used = sorted({c.index for c in cards if c.type == "cuda"})
+    out = {"n": n, "shards": SHARD_S, "cards": len(used) or 1,
+           "placement": [str(c) for c in cards], "sweep": []}
+    if used:
+        out["card_names"] = {c: torch.cuda.get_device_name(c) for c in used}
+        for c in used:
+            torch.cuda.reset_peak_memory_stats(c)
+    log(f"[sharded] {SHARD_S} shards over {out['cards']} card(s): shard s on "
+        f"{out['placement']}; {out.get('card_names', {})}")
+
+    def per_card(phase: str, need: str | None = None) -> dict:
+        """The phase's per-card launches (then restart the counts); with
+        ``need``, every card that holds a shard must have launched it."""
+        got = card_launches(k1, k2, used)
+        log(f"[sharded] {phase} kernel launches per card: {got}")
+        missing = [c for c in used if need and got[c][need] == 0]
+        if missing:
+            raise RuntimeError(f"[sharded] {phase}: cards {missing} never launched {need}")
+        return {"per_card": got, **take_launches(k1, k2)}
+
     x, q = make_clustered(0, n, NQ, D, n_clusters=4096, sigma=0.35)
     qd = torch.from_numpy(q).to(device)
     (_, assign), dt = _timed(torch, device, lambda: kmeans_partition(
@@ -2627,8 +2677,7 @@ def run_sharded(device, n: int, gt, k1, k2) -> dict:
     counts = np.bincount(assign.ravel(), minlength=SHARD_S)
     log(f"[sharded] k-means partition of {n} into {SHARD_S} shards, overlap 2: "
         f"{dt:.1f}s, rows per shard {counts.tolist()}")
-    idx = ShardedGraphIndex(SHARD_S, D, main_config(), cap_per_shard=int(counts.max()),
-                            device=device)
+    idx = ShardedGraphIndex(cards, D, main_config(), cap_per_shard=int(counts.max()))
     take_launches(k1, k2)
 
     def insert_all():
@@ -2641,12 +2690,12 @@ def run_sharded(device, n: int, gt, k1, k2) -> dict:
     log(f"[sharded] inserts of 8192 (full precision): {dt:.1f}s ({n / dt:.0f} points/s, "
         f"{counts.sum() / dt:.0f} routed rows/s); capacity per shard {idx.cap_per_shard}")
     out["build_launches"] = take_launches(k1, k2, "sharded build")
-    ecol = idx.ext.cpu().numpy()
+    ecol = idx._host_arrays()["ext"]
     if not (np.bincount(ecol[ecol >= 0], minlength=n) == 2).all():
         raise RuntimeError("[sharded] an external id is not stored in exactly two shards")
     _, dt = _timed(torch, device, lambda: idx.attach_packed(dp=128))
     out["attach_s"] = dt
-    out["attach_launches"] = take_launches(k1, k2, "sharded attach_packed")
+    out["attach_launches"] = per_card("attach_packed", "block_patch")
     log(f"[sharded] attach_packed dp=128: {dt:.1f}s")
     for mode in ("full", "packed"):
         idx.search(qd[:1024], K, l_search=SHARD_L[0], mode=mode)
@@ -2660,7 +2709,8 @@ def run_sharded(device, n: int, gt, k1, k2) -> dict:
             out["sweep"].append(pt)
             log(f"[sharded] {mode} search L={l}: recall@{K}={pt['recall']:.4f} "
                 f"qps={pt['qps']:.0f}")
-        out[f"{mode}_launches"] = take_launches(k1, k2, f"sharded {mode} search")
+        out[f"{mode}_launches"] = per_card(f"{mode} search",
+                                           "fatrow_expand" if mode == "packed" else None)
     best = max(p["recall"] for p in out["sweep"] if p["mode"] == "packed")
     if best < TARGET_RECALL or out["packed_launches"]["fatrow_expand"] == 0:
         raise RuntimeError(f"[sharded] packed search: best recall {best:.4f}, "
@@ -2682,7 +2732,7 @@ def run_sharded(device, n: int, gt, k1, k2) -> dict:
     take_launches(k1, k2)
     _, dt = _timed(torch, device, lambda: idx.delete(dead))
     out["delete"] = {"n": SHARD_DELETE, "s": dt, "freed": idx._free_total,
-                     "launches": take_launches(k1, k2, "sharded delete")}
+                     "launches": per_card("delete", "block_patch")}
     for mode in ("full", "packed"):
         _, ids, _ = idx.search(qd, K, l_search=40, mode=mode)
         if np.isin(ids[ids >= 0], dead).any():
@@ -2692,34 +2742,42 @@ def run_sharded(device, n: int, gt, k1, k2) -> dict:
         f"{dt:.1f}s; no deleted id returned; recall@{K} at L=40 against the "
         f"pre-delete truth: full {out['delete']['full_recall']:.4f}, packed "
         f"{out['delete']['packed_recall']:.4f}")
-    if out["delete"]["launches"]["block_patch"] == 0:
-        raise RuntimeError("[sharded] K2 never launched in the delete's packed refresh")
     take_launches(k1, k2)
+    if used:
+        out["peak_gib_per_card"] = {c: torch.cuda.max_memory_allocated(c) / 2**30
+                                    for c in used}
+        log(f"[sharded] max_memory_allocated per card (GiB): {out['peak_gib_per_card']}")
 
+    # the record holds no placement: load it onto the first card alone and
+    # hold its ids against the spread index's
     _, want, _ = idx.search(qd, K, l_search=40)
+    one_card = cards[0]
     tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
     try:
         _, dt_save = _timed(torch, device, lambda: idx.save(tmp))
-        re, dt_load = _timed(torch, device, lambda: ShardedGraphIndex.load(tmp, device=device))
+        re, dt_load = _timed(torch, device, lambda: ShardedGraphIndex.load(
+            tmp, device=one_card))
     finally:
         shutil.rmtree(tmp)
     _, got, _ = re.search(qd, K, l_search=40)
     out["save_s"], out["load_s"] = dt_save, dt_load
     out["reload_identical"] = bool(np.array_equal(got, want))
-    log(f"[sharded] save {dt_save:.1f}s, load {dt_load:.1f}s: identical ids "
+    log(f"[sharded] save {dt_save:.1f}s, load onto {one_card} alone {dt_load:.1f}s: "
+        f"identical ids at L=40 to the {out['cards']}-card placement "
         f"{out['reload_identical']}")
     if not out["reload_identical"]:
-        raise RuntimeError("[sharded] the save/load round trip changed results")
+        raise RuntimeError("[sharded] the save/load onto one card changed results")
     del re, idx
     torch.cuda.empty_cache()
 
     xd = torch.from_numpy(x).to(device)
-    (fd, fi), dt = _timed(torch, device, lambda: sharded_flat_search(SHARD_S, xd, qd, K))
+    (fd, fi), dt = _timed(torch, device, lambda: sharded_flat_search(cards, xd, qd, K))
     (gd, gi), dt_flat = _timed(torch, device, lambda: FlatIndex(xd).search(qd, K))
     out["flat"] = {"s": dt, "flat_index_s": dt_flat,
                    "identical_ids": float((fi.cpu().numpy() == gi).mean())}
-    log(f"[sharded] sharded_flat_search ({SHARD_S} blocks) {dt:.2f}s vs FlatIndex "
-        f"{dt_flat:.2f}s: identical ids {out['flat']['identical_ids']:.6f}")
+    log(f"[sharded] sharded_flat_search ({SHARD_S} blocks over {out['cards']} card(s)) "
+        f"{dt:.2f}s vs FlatIndex {dt_flat:.2f}s: identical ids "
+        f"{out['flat']['identical_ids']:.6f}")
     if out["flat"]["identical_ids"] != 1.0:
         raise RuntimeError("[sharded] sharded_flat_search disagrees with FlatIndex")
     del xd, x
@@ -2729,40 +2787,44 @@ def run_sharded(device, n: int, gt, k1, k2) -> dict:
 
 
 def adopt_synthetic(torch, idx, n_total: int, r: int) -> None:
-    """Fill the sharded index with a structurally valid synthetic graph on
-    the card (`scripts/bench_sharded10m.py`'s recipe): a ring adjacency
-    (slot i -> i+1..i+r mod the shard's rows; no repeats, no self-loops,
-    degrees consistent), random Gaussian vectors, round-robin external ids
-    (slot i of shard s holds s + i * n_shards)."""
+    """Fill the sharded index with a structurally valid synthetic graph
+    (`scripts/bench_sharded10m.py`'s recipe): a ring adjacency (slot i ->
+    i+1..i+r mod the shard's rows; no repeats, no self-loops, degrees
+    consistent), random Gaussian vectors, round-robin external ids (slot i
+    of shard s holds s + i * n_shards).  The vectors are drawn on the first
+    shard's device, shard by shard, and copied to each shard's: the data
+    are the same on any placement."""
     s_count = idx.n_shards
     ns = n_total // s_count
     cap = idx.cap_per_shard
-    dev = idx.device
-    g = torch.Generator(device=dev).manual_seed(0)
-    slot = torch.arange(cap, device=dev, dtype=torch.int32)
-    live = slot < ns
-    adj = (slot[:, None] + torch.arange(1, r + 1, device=dev, dtype=torch.int32)) % ns
-    adj = torch.where(live[:, None], adj, -1)
-    adj = torch.nn.functional.pad(adj, (0, idx.config.max_degree_with_slack - r), value=-1)
+    g = torch.Generator(device=idx.device).manual_seed(0)
     for s in range(s_count):
-        st = idx.shard(s)
-        vecs = torch.randn((cap, idx.dim), generator=g, device=dev)
+        dev = idx.devices[s]
+        slot = torch.arange(cap, device=dev, dtype=torch.int32)
+        live = slot < ns
+        adj = (slot[:, None] + torch.arange(1, r + 1, device=dev, dtype=torch.int32)) % ns
+        adj = torch.where(live[:, None], adj, -1)
+        adj = torch.nn.functional.pad(adj, (0, idx.config.max_degree_with_slack - r),
+                                      value=-1)
+        vecs = torch.randn((cap, idx.dim), generator=g, device=idx.device).to(dev)
         vecs[~live] = 0.0
+        st = idx.shard(s)
         st.vectors.copy_(vecs)
         st.sq_norms.copy_((vecs * vecs).sum(1))
         st.adjacency.copy_(adj)
         st.degrees.copy_(torch.where(live, r, 0))
         st.valid.copy_(live)
         st.vec_sum.copy_(vecs.sum(0))
-        idx.ext[s] = torch.where(live, slot * s_count + s, -1)
+        idx.ext[s].copy_(torch.where(live, slot * s_count + s, -1))
+        idx.starts[s].zero_()
     idx.ns[:] = ns
-    idx.starts.zero_()
     idx.next_ext = ns * s_count
 
 
 def run_sharded_10m(device, k1, k2) -> dict:
     """The JAX package's own sharded scale (`scripts/bench_sharded10m.py`):
-    SH10M_N x SH10M_D over SH10M_S shards on the one card, a synthetic ring
+    SH10M_N x SH10M_D over SH10M_S shards on the visible cards
+    (`shard_cards`), a synthetic ring
     graph adopted on the card, then insert SH10M_BATCH rows with overlap 2,
     delete SH10M_BATCH adopted ids, re-insert SH10M_BATCH (freed slots
     recycle first), search (valid external ids), save and load (identical
@@ -2783,13 +2845,14 @@ def run_sharded_10m(device, k1, k2) -> dict:
                       max_occlusion_size=64)
     cap = SH10M_N // s_count + 3 * bsz
     out = {"n": SH10M_N, "d": SH10M_D, "shards": s_count}
-    idx = ShardedGraphIndex(s_count, SH10M_D, cfg, cap_per_shard=cap, device=device)
+    idx = ShardedGraphIndex(shard_cards(torch, device, s_count), SH10M_D, cfg,
+                            cap_per_shard=cap)
     _, out["adopt_s"] = _timed(torch, device, lambda: adopt_synthetic(torch, idx, SH10M_N,
                                                                       SH10M_R))
     rng = np.random.default_rng(3)
 
     def free_slots():
-        return sum(int((~idx.stacked.valid[s, : int(idx.ns[s])]).sum())
+        return sum(int((~idx.shard(s).valid[: int(idx.ns[s])]).sum())
                    for s in range(s_count))
 
     take_launches(k1, k2)
@@ -2818,7 +2881,7 @@ def run_sharded_10m(device, k1, k2) -> dict:
         _, out["save_s"] = _timed(torch, device, lambda: idx.save(tmp))
         out["saved_bytes"] = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
         re, out["load_s"] = _timed(torch, device, lambda: ShardedGraphIndex.load(
-            tmp, device=device))
+            tmp, device=idx.devices))
     finally:
         shutil.rmtree(tmp)
     _, i2, _ = re.search(q, K)
@@ -2837,10 +2900,31 @@ def run_sharded_10m(device, k1, k2) -> dict:
     return out
 
 
+def only_sharded(torch, device, n: int, k1, k2) -> int:
+    """`--only sharded`: the main path's data and exact top-10, then the
+    [sharded] phase alone; prints its summary."""
+    from diskann_tpu_torch import FlatIndex
+    from diskann_tpu_torch.bench.harness import make_clustered
+
+    x, q = make_clustered(0, n, NQ, D, n_clusters=4096, sigma=0.35)
+    _, gt = FlatIndex(torch.from_numpy(x).to(device)).search(torch.from_numpy(q).to(device), K)
+    del x, q
+    torch.cuda.empty_cache()
+    lap, walls = lap_clock()
+    sharded = run_sharded(device, n, gt, k1, k2)
+    lap("sharded")
+    log("[summary] " + json.dumps({"sharded": sharded, "walls": walls}))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
                     help="database size of the main path (default 1,000,000)")
+    ap.add_argument("--only", choices=["sharded"],
+                    help="after the build and the kernel checks, run only this phase "
+                         "(on the main path's data and truth) and print its summary; "
+                         "no result line")
     args = ap.parse_args(argv)
 
     import torch
@@ -2874,6 +2958,15 @@ def main(argv=None) -> int:
 
     k1_err, k1_dps = check_fatrow_expand(torch, device)
     k2_err = check_block_patch(torch, device)
+    cards = torch.cuda.device_count()
+    log(f"[device] {cards} card(s): "
+        f"{[torch.cuda.get_device_name(c) for c in range(cards)]}")
+    for c in range(1, cards):
+        check_fatrow_expand(torch, torch.device("cuda", c))
+        check_block_patch(torch, torch.device("cuda", c))
+        torch.cuda.empty_cache()
+    if args.only == "sharded":
+        return only_sharded(torch, device, args.n, k1, k2)
     check_small_input(torch, device)
     check_small_tiered(torch, device)
     check_packed_widths(torch, device, k1)

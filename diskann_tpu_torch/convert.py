@@ -239,41 +239,41 @@ def sharded_index_from_arrays(
     ``proj`` / ``pscale`` / ``pbias2`` stacked too, as the reference holds
     them) plus ``r_pack``, or None; labels: ``{"labels_per_ext": list,
     "vocab": dict, "bits": [S, cap, n_words] uint32}``, or None.  dtype:
-    the vectors' dtype, by default the array's own.  The index goes on
-    ``device``, by default the CUDA card."""
-    from diskann_tpu_torch.parallel.sharded import ShardedGraphIndex
+    the vectors' dtype, by default the array's own.  ``device``: one device
+    for every shard (the CUDA card by default) or a sequence of one device
+    per shard, as for `ShardedGraphIndex.load`."""
+    from diskann_tpu_torch.parallel.sharded import ShardedGraphIndex, _record_placement
 
-    device = default_device(device)
     cfg = dict(config)
     cfg["metric"] = Metric(cfg["metric"])
     cfg = GraphConfig(**cfg)
     ext = np.asarray(ext)
     n_shards, cap = ext.shape
-    vectors = vectors_from_host(stacked["vectors"], dtype).to(device)
-    idx = ShardedGraphIndex(n_shards, vectors.shape[2], cfg, cap_per_shard=1,
-                            dtype=vectors.dtype, device=device)
-    g = GraphArrays(vectors=vectors, **{
-        k: torch.as_tensor(np.array(stacked[k]), device=device).to(dt)
-        for k, dt in _GRAPH_DTYPES.items()})
-    if tuple(g.adjacency.shape) != (n_shards, cap, cfg.max_degree_with_slack):
-        raise ValueError(f"adjacency {tuple(g.adjacency.shape)} does not match "
+    vectors = np.asarray(stacked["vectors"])
+    if dtype is None:          # the array's own, as `vectors_from_host` reads it
+        dtype = vectors_from_host(vectors[:1, :1]).dtype
+    adjacency = np.asarray(stacked["adjacency"])
+    if adjacency.shape != (n_shards, cap, cfg.max_degree_with_slack):
+        raise ValueError(f"adjacency {adjacency.shape} does not match "
                          f"{n_shards} shards of {cap} x {cfg.max_degree_with_slack}")
-    idx.stacked = g
+    devices = _record_placement(n_shards, device)
+    idx = ShardedGraphIndex(devices, vectors.shape[2], cfg, cap_per_shard=1, dtype=dtype)
+    idx._adopt_host({"vectors": vectors, "ext": np.array(ext), "starts": np.array(starts)}
+                    | {k: np.array(stacked[k]) for k in _GRAPH_DTYPES}, dtype)
     idx.cap_per_shard = cap
-    idx.ext = _tensor(ext, torch.int32, device)
     idx.ns = np.asarray(ns, np.int64).copy()
-    idx.starts = _tensor(starts, torch.int32, device).reshape(n_shards, 1)
     idx.next_ext = int(next_ext)
     idx.n_deleted = int(n_deleted)
     idx._free_total = int(free_total)
     if packed is not None:
         idx.packed = [
-            PackedState(**{f: _tensor(np.asarray(packed[f])[s], dt, device)
+            PackedState(**{f: _tensor(np.asarray(packed[f])[s], dt, dev)
                            for f, dt in _PACKED_DTYPES.items()},
                         r_pack=int(packed["r_pack"]))
-            for s in range(n_shards)]
+            for s, dev in enumerate(devices)]
     if labels is not None:
         idx._labels_per_ext = list(labels["labels_per_ext"])
         idx.label_vocab = dict(labels["vocab"])
-        idx.label_bits = _tensor(labels["bits"], torch.int32, device)
+        idx.label_bits = [_tensor(np.asarray(labels["bits"])[s], torch.int32, dev)
+                          for s, dev in enumerate(devices)]
     return idx

@@ -77,8 +77,11 @@ _START_STRATEGIES = ("medoid", "first_vector", "random_samples",
                      "latin_hypercube", "random_vectors")
 
 # query wire dtypes of `query_dtype` (the queries are rounded through the
-# dtype, then computed on in float32)
-_QUERY_DTYPES = {"float16": torch.float16, "float32": torch.float32}
+# dtype, then computed on in float32); int8 takes the i8 wire instead
+_QUERY_DTYPES = {"float16": torch.float16, "float32": torch.float32,
+                 "bfloat16": torch.bfloat16}
+# the names of the int8 query wire, as the reference takes them
+_I8_WIRE = ("i8", "int8", "i8pack")
 
 # search modes: the full-precision walk, and the walks over a compressed
 # layout (each followed by a full-precision rerank)
@@ -199,17 +202,60 @@ def _router_topk_packed_pre(rc, raux, proj, pscale, pbias2, router_ids,
     return smallest_ids(d, router_ids, n_start)
 
 
-def _round_queries(q: torch.Tensor, query_dtype) -> torch.Tensor:
-    """Round float32 queries through ``query_dtype`` (np.float16) and back,
-    as the reference's compressed query upload does; None keeps them."""
+def _encode_i8pack(q: np.ndarray) -> np.ndarray:
+    """Host-side int8 query wire (the reference's arithmetic): per-row
+    symmetric scalar quantization (max-abs -> 127) with the float32 scale
+    riding as 4 extra int8 columns -> [B, d+4] int8."""
+    scale = np.abs(q).max(axis=1, keepdims=True).astype(np.float32) / 127.0
+    scale = np.maximum(scale, 1e-12)
+    qi = np.clip(np.rint(q / scale), -127, 127).astype(np.int8)
+    return np.concatenate([qi, scale.view(np.int8)], axis=1)
+
+
+def _decode_i8pack(q_wire: torch.Tensor, dim: int) -> torch.Tensor:
+    """Device-side inverse of `_encode_i8pack` -> [B, d] float32 (codes
+    times the row's scale)."""
+    codes = q_wire[:, :dim].float()
+    scale = q_wire[:, dim:dim + 4].contiguous().view(torch.float32)
+    return codes * scale
+
+
+def _query_wire(query_dtype) -> str | None:
+    """The wire ``query_dtype`` names: None, a `_QUERY_DTYPES` key, or
+    "i8pack" for the int8 wire (the strings of `_I8_WIRE`, or an int8
+    numpy or torch dtype)."""
     if query_dtype is None:
-        return q
-    name = np.dtype(query_dtype).name
+        return None
+    if isinstance(query_dtype, str) and query_dtype in _I8_WIRE:
+        return "i8pack"
+    if isinstance(query_dtype, torch.dtype):
+        name = str(query_dtype).removeprefix("torch.")
+    elif isinstance(query_dtype, str) and query_dtype == "bfloat16":
+        # numpy knows this name only through ml_dtypes
+        name = "bfloat16"
+    else:
+        name = np.dtype(query_dtype).name
+    if name == "int8":
+        return "i8pack"
     if name not in _QUERY_DTYPES:
         raise NotImplementedError(
-            f"query_dtype={name!r}: only float16 and float32 are ported"
+            f"query_dtype={name!r}: the wires are float16, bfloat16, float32 and int8"
         )
-    return q.to(_QUERY_DTYPES[name]).float()
+    return name
+
+
+def _round_queries(q: torch.Tensor, query_dtype) -> torch.Tensor:
+    """Float32 queries as they arrive through the ``query_dtype`` wire:
+    rounded through float16 / bfloat16 and back, or encoded on the host
+    by `_encode_i8pack` and decoded on the queries' device; None keeps
+    them."""
+    wire = _query_wire(query_dtype)
+    if wire is None:
+        return q
+    if wire == "i8pack":
+        packed = torch.from_numpy(_encode_i8pack(q.cpu().numpy())).to(q.device)
+        return _decode_i8pack(packed, q.shape[1])
+    return q.to(_QUERY_DTYPES[wire]).float()
 
 
 def _stats(cmps, hops, ids) -> SearchStats:
@@ -283,6 +329,9 @@ class GraphIndex:
     @property
     def n_live(self) -> int:
         return self.n - self.n_deleted
+
+    def __len__(self) -> int:
+        return self.n_live
 
     @property
     def metric(self) -> Metric:
@@ -466,13 +515,20 @@ class GraphIndex:
         return slots
 
     # ----------------------------------------------------------------- attach
-    def attach_packed(self, *, dp: int | None = 64, sigma: float = 4.0) -> None:
+    def attach_packed(self, *, dp: int | None = 64, sigma: float = 4.0,
+                      writable: bool = True, refresh_block: int = _REFRESH_ROWS,
+                      spill: bool | None = None) -> None:
         """(Re)build the packed search layout: PCA-project the vectors to
-        ``dp`` dims, quantize to int8, and write every node's fat row.
+        ``dp`` dims, quantize to int8, and write every node's fat row,
+        ``refresh_block`` rows per `refresh_rows` call.
 
-        Every table stays writable: the reference's read-only guard above
-        2^31 words exists because its scatters index in int32, and the
-        port indexes in int64."""
+        ``writable`` is taken and changes nothing: every table stays
+        writable, since the reference's read-only guard above 2^31 words
+        exists because its scatters index in int32, and the port indexes
+        in int64.  ``spill`` is taken and changes nothing: the reference
+        spills its device state to the host around a big allocation to
+        defragment TPU memory, which the port does not do."""
+        del writable, spill
         sample = self.state.vectors[: min(1 << 16, self.n)].float().cpu().numpy()
         proj, pscale, pbias2 = packed_mod.train_packed(
             sample, min(dp or self.dim, self.dim), self.config.metric,
@@ -491,8 +547,8 @@ class GraphIndex:
             p, torch.arange(self.n, device=self.device), codes, aux
         )
         del codes, aux
-        for off in range(0, cap, _REFRESH_ROWS):
-            rows = torch.arange(off, min(off + _REFRESH_ROWS, cap),
+        for off in range(0, cap, refresh_block):
+            rows = torch.arange(off, min(off + refresh_block, cap),
                                 device=self.device)
             packed_mod.refresh_rows(p, self.state.adjacency, rows)
         self.packed = p
@@ -686,7 +742,11 @@ class GraphIndex:
         others), the hop loop (the best-list dedup at W > 1 or in packed
         mode, else the ring), then a full-precision rerank of the top
         `rerank_l` candidates (None: all L).  max_hops: cap the hop loop.
-        query_dtype: np.float16 rounds the queries through float16 first.
+        query_dtype: the queries' wire: np.float16 or bfloat16 rounds them
+        through that type first; "i8" / "int8" / "i8pack" / np.int8 takes
+        the int8 wire (`_encode_i8pack`), on every route (the reference's
+        full route casts to int64 or int8 there instead, which truncates
+        the queries).
         router_starts: per-query router entry points (None = config
         default)."""
         if mode == "auto":

@@ -82,6 +82,16 @@ class PackedState:
     def nwr(self) -> int:
         return n_wrows(self.r_pack, self.dp)
 
+    @property
+    def aux_off_w(self) -> int:
+        """Word offset of the aux section within a flattened logical row."""
+        return self.idw * 128
+
+    @property
+    def code_off_w(self) -> int:
+        """Word offset of the code section within a flattened logical row."""
+        return 2 * self.idw * 128
+
 
 def train_packed(vectors: np.ndarray, dp: int, metric: Metric, *,
                  sigma: float = 4.0, device=None):
@@ -125,9 +135,13 @@ def _empty_rows(n: int, r_pack: int, dp: int, *, device=None) -> torch.Tensor:
     return tmpl.view(nwr, 128).repeat(n, 1)
 
 
-def alloc_packed(proj, pscale, pbias2, capacity: int, r_slack: int) -> PackedState:
+def alloc_packed(proj, pscale, pbias2, capacity: int, r_slack: int, *,
+                 writable: bool = True) -> PackedState:
     """An empty packed state for `capacity` nodes (+1 dump row), on the
-    device of `proj`."""
+    device of `proj`.  ``writable`` is taken and changes nothing: the
+    reference refuses a writable table of 2^31 words or more because its
+    scatters index in int32; every table here indexes in int64."""
+    del writable
     dev = proj.device
     dp = proj.shape[1]
     rp = padded_degree(r_slack, dp)
@@ -201,6 +215,17 @@ def words_to_f32(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous().view(torch.float32)
 
 
+def row_nbytes(r_pack: int, dp: int) -> int:
+    """Fat-row byte width (all word rows of one logical row)."""
+    return n_wrows(r_pack, dp) * 512
+
+
+def logical_rows(packed: PackedState) -> torch.Tensor:
+    """The word table viewed as [cap+1, nwr*128] flattened logical rows
+    (decode with the `*_off_w` word offsets)."""
+    return packed.rows.view(-1, packed.nwr * 128)
+
+
 def refresh_rows(packed: PackedState, adjacency: torch.Tensor, rows) -> PackedState:
     """Rebuild whole fat rows for node ids `rows` from the current
     adjacency, in place.  Ids outside [0, cap) write the dump row."""
@@ -259,3 +284,13 @@ def append_edges(packed: PackedState, tgt, slot, src, ok) -> PackedState:
     cbase = base + 2 * idw * 128 + slot_s * dpw
     flat[cbase[:, None] + kw] = code_w
     return packed
+
+
+def append_edges_deferred(packed: PackedState, tgt, slot, src, ok, **_legacy) -> PackedState:
+    """`append_edges` on array-like edges (converted to the table's device
+    first); the reference's name for its donating form, whose update is
+    in place here as well."""
+    dev = packed.rows.device
+    as_t = lambda a, dt: torch.as_tensor(a, device=dev).to(dt)  # noqa: E731
+    return append_edges(packed, as_t(tgt, torch.int32), as_t(slot, torch.int32),
+                        as_t(src, torch.int32), as_t(ok, torch.bool))

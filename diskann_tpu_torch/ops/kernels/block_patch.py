@@ -14,12 +14,18 @@ garbage by design.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from diskann_tpu_torch.ops.kernels import native
 
-#: Kernel launches so far in this process (the wrapper adds one per launch).
+#: Kernel launches so far in this process (the wrapper adds one per launch),
+#: in all and per CUDA device index; host workers of several cards launch
+#: at once, so the counts move under a lock.
 launches = 0
+launches_by_device: dict[int, int] = {}
+_count_lock = threading.Lock()
 
 
 def block_patch_plain(table, block_idx, vals):
@@ -65,5 +71,8 @@ def block_patch(table, block_idx, vals):
             torch.cuda.current_stream(table.device).cuda_stream,
         )
     native.check(err, "block_patch")
-    launches += 1
+    with _count_lock:
+        launches += 1
+        dev = table.device.index
+        launches_by_device[dev] = launches_by_device.get(dev, 0) + 1
     return table

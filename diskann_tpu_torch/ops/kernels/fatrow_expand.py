@@ -12,13 +12,19 @@ reference the kernel is checked against.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from diskann_tpu_torch.graph.packed import code_wrows, id_wrows, n_wrows
 from diskann_tpu_torch.ops.kernels import native
 
-#: Kernel launches so far in this process (the wrapper adds one per launch).
+#: Kernel launches so far in this process (the wrapper adds one per launch),
+#: in all and per CUDA device index; host workers of several cards launch
+#: at once, so the counts move under a lock.
 launches = 0
+launches_by_device: dict[int, int] = {}
+_count_lock = threading.Lock()
 
 
 def _geometry(rp: int, dp: int):
@@ -88,5 +94,7 @@ def fatrow_expand(rows, beam_flat, qiw, *, rp: int, dp: int):
             dots.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     native.check(err, "fatrow_expand")
-    launches += 1
+    with _count_lock:
+        launches += 1
+        launches_by_device[dev.index] = launches_by_device.get(dev.index, 0) + 1
     return ids, aux_w, dots

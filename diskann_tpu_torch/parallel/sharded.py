@@ -1,33 +1,46 @@
-"""Database-sharded index on one device (PyTorch port of
+"""Database-sharded index over one or several devices (PyTorch port of
 `diskann_tpu/parallel/sharded.py`).
 
 - The id space is split into ``n_shards`` ranges of ``cap_per_shard``
   slots; every slot also carries an EXTERNAL id, so one logical vector may
   live in several shards (overlap routing, as `parallel/partition.py`
   assigns it) and results are deduplicated by external id at merge time.
-- The reference puts each shard on its own device of a mesh and fans its
-  work out with `shard_map`.  The port's target is one card, so the shards
-  share it: the per-shard work is a loop over the shards, and the
-  reference's `all_gather` is a concatenation before the merge.
-- Layout: the reference's stacked one.  Each `GraphArrays` field is one
-  ``[n_shards, cap, ...]`` tensor (``stacked``) and ``ext`` is ``[n_shards,
-  cap]`` int32, as the reference's record holds them.  Shard ``s`` is the
-  `GraphArrays` of views ``stacked.<field>[s]`` (`shard`), so the port's
-  own per-index calls run on it unchanged and write the stacked tensors in
-  place: `graph/build.insert_batch`, `graph/search.beam_search` and
-  `beam_search_scored`, `graph/delete`'s mark, `patch_rows` and
-  `drop_deleted_rows`, and `graph/packed`'s `alloc_packed` / `encode` /
-  `refresh_rows` (a list of per-shard `PackedState`, never saved, as in
-  the reference).
-- Search runs each shard's walk, maps its ids to external ids, and merges
-  the per-shard lists with one lexicographic (distance, id) sort that puts
-  overlap copies side by side (`_merge_topk_dedup`).  Deletes find each
-  shard's copies by a membership test of its ``ext`` column on the device
-  (no host id map), repair the referencing rows, and hand the slots to a
-  per-shard freelist derived from ``~valid`` below the high-water mark.
+- Placement, the counterpart of the reference's mesh: ``shards`` is an
+  int (every shard on ``device``) or a sequence of devices, one per shard
+  (shard ``s`` on ``shards[s]``; a card may hold several shards).
+- Layout: per shard.  The reference stacks each `GraphArrays` field into
+  one ``[n_shards, cap, ...]`` array that its mesh splits across devices;
+  a torch tensor lives on one device, so here each shard owns its own
+  `GraphArrays` (``arrays[s]``), ``ext[s]`` ([cap] int32 external ids),
+  ``starts[s]`` ([1] int32), ``label_bits[s]`` and ``packed[s]``, all on
+  ``devices[s]``; the high-water marks ``ns`` live on the host.  The one
+  layout serves both placements, and the record stacks the shards on the
+  host at save, so it stays the reference's.  The port's own per-index
+  calls run on a shard unchanged (`shard`): `graph/build.insert_batch`,
+  `graph/search.beam_search` and `beam_search_scored`, `graph/delete`'s
+  mark, `patch_rows` and `drop_deleted_rows`, and `graph/packed`'s
+  `alloc_packed` / `encode` / `refresh_rows`.
+- Fan-out, the counterpart of `shard_map` (`_fan_out`): the shards are
+  grouped by device and one host worker per distinct device runs its
+  device's shards in shard order, under that device's context, so one
+  card's host syncs never stall another's.  An index on one device runs
+  its shards in the calling thread, in order.  A worker's exception
+  propagates to the caller.
+- Search uploads the queries once per device and call, runs each shard's
+  walk on its device, maps its ids to external ids there, and copies the
+  per-shard lists to the first device (the counterpart of `all_gather`),
+  where one lexicographic (distance, id) sort over the lists in shard
+  order puts overlap copies side by side (`_merge_topk_dedup`).  Deletes
+  send the dead ids to every device; each shard finds its copies by a
+  membership test of its ``ext`` column (no host id map), repairs the
+  referencing rows, and hands the slots to a freelist derived from
+  ``~valid`` below the high-water mark.
 """
 
 from __future__ import annotations
+
+import contextlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -50,11 +63,83 @@ _DELETE_CHUNK = 4096
 _ATTACH_ROWS = 65536
 # queries walked at once (each query's walk is independent)
 _QUERY_ROWS = 8192
+# the record's per-shard arrays besides the vectors, as the shards hold them
+_HOST_DTYPES = {"sq_norms": torch.float32, "adjacency": torch.int32,
+                "degrees": torch.int32, "valid": torch.bool, "vec_sum": torch.float32,
+                "ext": torch.int32, "starts": torch.int32}
 
 
-def _stacked_alloc(n_shards, cap, dim, r_slack, dtype, device) -> GraphArrays:
-    one = graph_state.alloc(cap, dim, r_slack, dtype, device=device)
-    return GraphArrays(*(a[None].repeat((n_shards,) + (1,) * a.dim()) for a in one))
+def _resolve(device) -> torch.device:
+    """``device`` as a `torch.device`; a bare "cuda" is pinned to the
+    current card, so shards placed by "cuda" and "cuda:0" share a worker."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _placement(shards, device=None) -> list[torch.device]:
+    """One device per shard: ``shards`` an int puts every shard on
+    ``device`` (the CUDA card by default); a sequence names each shard's
+    device and leaves ``device`` unset."""
+    if isinstance(shards, (int, np.integer)):
+        if shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {shards}")
+        return [_resolve(default_device(device))] * int(shards)
+    if device is not None:
+        raise ValueError("give the devices in `shards` or a shard count and `device`, "
+                         "not both")
+    devs = [_resolve(d) for d in shards]
+    if not devs:
+        raise ValueError("no shards")
+    return devs
+
+
+def _record_placement(n_shards: int, device) -> list[torch.device]:
+    """The placement of a record's ``n_shards`` shards: ``device`` is one
+    device (every shard on it) or a sequence of one device per shard."""
+    if device is None or isinstance(device, (str, torch.device)):
+        return _placement(n_shards, device)
+    devs = _placement(device)
+    if len(devs) != n_shards:
+        raise ValueError(f"record has {n_shards} shards, {len(devs)} devices given")
+    return devs
+
+
+def _on(dev: torch.device):
+    """The device context a worker runs under (none on the CPU)."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
+def _fan_out(devices: list, fn) -> list:
+    """``[fn(s) for s in range(len(devices))]``, shard ``s`` run on
+    ``devices[s]``: one host worker per distinct device, each running its
+    shards in shard order; one device runs in the calling thread.  The
+    results come back in shard order whatever order the workers finish
+    in; a worker's exception propagates once every worker has stopped."""
+    groups: dict[torch.device, list[int]] = {}
+    for s, dev in enumerate(devices):
+        groups.setdefault(dev, []).append(s)
+    out = [None] * len(devices)
+
+    def work(dev, members):
+        with _on(dev):
+            for s in members:
+                out[s] = fn(s)
+
+    if len(groups) == 1:
+        work(*next(iter(groups.items())))
+        return out
+    with ThreadPoolExecutor(len(groups)) as pool:
+        futures = [pool.submit(work, dev, members) for dev, members in groups.items()]
+        for f in futures:
+            f.result()
+    return out
+
+
+def _per_device(devices: list, t: torch.Tensor) -> dict:
+    """``t`` copied once to each distinct device of ``devices``."""
+    return {dev: t.to(dev) for dev in dict.fromkeys(devices)}
 
 
 def _merge_topk_dedup(all_d, all_i, k):
@@ -76,21 +161,21 @@ def _merge_topk_dedup(all_d, all_i, k):
 
 
 class ShardedGraphIndex:
-    """A Vamana index partitioned into ``n_shards`` shards on one device.
+    """A Vamana index partitioned into shards, each on its own device.
 
     Vectors are addressed by EXTERNAL id (assigned at insert, returned by
     `search`); one external id may be stored in several shards (overlap
     routing), and deletes remove every copy."""
 
     packed: list | None = None
-    label_bits = None
+    label_bits: list | None = None
     label_vocab = None
     _labels_per_ext = None
     _labels_stale = False
 
     def __init__(
         self,
-        n_shards: int,
+        shards,
         dim: int,
         config: GraphConfig | None = None,
         *,
@@ -98,54 +183,55 @@ class ShardedGraphIndex:
         dtype=torch.float32,
         device=None,
     ):
-        """``dtype``: how the vectors are stored, as for `GraphIndex`;
-        ``device``: where every shard lives (the CUDA card by default)."""
-        self.n_shards = int(n_shards)
+        """``shards``: the shard count, every shard on ``device`` (the CUDA
+        card by default), or a sequence of devices, one per shard (shard
+        ``s`` on ``shards[s]``); ``dtype``: how the vectors are stored, as
+        for `GraphIndex`."""
+        self.devices = _placement(shards, device)
+        self.device = self.devices[0]          # where the shards' lists merge
+        self.n_shards = len(self.devices)
         self.config = config or GraphConfig()
         self.dim = dim
         self.cap_per_shard = cap_per_shard
         self.dtype = graph_state.vector_dtype(dtype)
-        self.device = default_device(device)
-        self.stacked = _stacked_alloc(self.n_shards, cap_per_shard, dim,
-                                      self.config.max_degree_with_slack,
-                                      self.dtype, self.device)
+        r_slack = self.config.max_degree_with_slack
+        self.arrays = [graph_state.alloc(cap_per_shard, dim, r_slack, self.dtype, device=d)
+                       for d in self.devices]
         # per-shard high-water marks, on the host (the reference keeps them
-        # on the mesh; here every shard is on the host's one card)
+        # on the mesh)
         self.ns = np.zeros(self.n_shards, np.int64)
-        self.starts = torch.full((self.n_shards, 1), -1, dtype=torch.int32,
-                                 device=self.device)
-        self.ext = torch.full((self.n_shards, cap_per_shard), -1, dtype=torch.int32,
-                              device=self.device)
+        self.starts = [torch.full((1,), -1, dtype=torch.int32, device=d)
+                       for d in self.devices]
+        self.ext = [torch.full((cap_per_shard,), -1, dtype=torch.int32, device=d)
+                    for d in self.devices]
         self.next_ext = 0
         # no host-side external id -> slot map: a delete looks its ids up
-        # on the device, in the `ext` columns
+        # on the devices, in the `ext` columns
         self.n_deleted = 0
         # freed slots in all shards (each shard's freelist is derived from
         # ~valid below its high-water mark)
         self._free_total = 0
 
     def shard(self, s: int) -> GraphArrays:
-        """Shard ``s``'s arrays: views into ``stacked``."""
-        return GraphArrays(*(a[s] for a in self.stacked))
+        """Shard ``s``'s arrays, on ``devices[s]``."""
+        return self.arrays[s]
+
+    def _fan_out(self, fn) -> list:
+        return _fan_out(self.devices, fn)
 
     # ------------------------------------------------------------------ grow
     def grow(self, new_cap_per_shard: int) -> None:
-        """Grow every shard's capacity (pad all stacked arrays); an attached
-        packed layout is rebuilt."""
+        """Grow every shard's capacity (pad its arrays); an attached packed
+        layout is rebuilt."""
         extra = new_cap_per_shard - self.cap_per_shard
         if extra <= 0:
             return
-        st = self.stacked
-        pad = torch.nn.functional.pad
-        self.stacked = GraphArrays(
-            vectors=pad(st.vectors, (0, 0, 0, extra)),
-            sq_norms=pad(st.sq_norms, (0, extra)),
-            adjacency=pad(st.adjacency, (0, 0, 0, extra), value=-1),
-            degrees=pad(st.degrees, (0, extra)),
-            valid=pad(st.valid, (0, extra)),
-            vec_sum=st.vec_sum,
-        )
-        self.ext = pad(self.ext, (0, extra), value=-1)
+
+        def pad(s):
+            self.arrays[s] = graph_state.grow(self.arrays[s], new_cap_per_shard)
+            self.ext[s] = torch.nn.functional.pad(self.ext[s], (0, extra), value=-1)
+
+        self._fan_out(pad)
         self.cap_per_shard = new_cap_per_shard
         self._labels_stale = True
         if self.packed is not None:
@@ -165,8 +251,8 @@ class ShardedGraphIndex:
         (each row's `overlap` nearest shards from `kmeans_partition`).
         Returns the external ids assigned to the rows.  on_overflow:
         "grow" at least doubles shard capacity; "error" raises — never
-        silent loss.  Each shard commits its rows as one batch
-        (`insert_batch`), freed slots first."""
+        silent loss.  Each shard's rows go from the host to its device and
+        commit there as one batch (`insert_batch`), freed slots first."""
         vectors = np.asarray(vectors, np.float32)
         m = vectors.shape[0]
         if assignments is None:
@@ -196,36 +282,40 @@ class ShardedGraphIndex:
             self.grow(max(need, self.cap_per_shard * 2))
 
         if len(pair_s):
-            vecs = torch.from_numpy(vectors).to(self.device)
-            rows = torch.from_numpy(pair_j).to(self.device)
-            rext = torch.from_numpy(ext_ids[pair_j].astype(np.int32)).to(self.device)
             bounds = np.concatenate([[0], np.cumsum(counts)])
-            for s in np.nonzero(counts)[0]:
-                lo, hi = bounds[s], bounds[s + 1]
-                self._insert_shard(int(s), vecs[rows[lo:hi]], rext[lo:hi])
+            rext = ext_ids.astype(np.int32)
+
+            def insert(s):
+                rows = pair_j[bounds[s]:bounds[s + 1]]
+                if len(rows):
+                    dev = self.devices[s]
+                    self._insert_shard(s, torch.from_numpy(vectors[rows]).to(dev),
+                                       torch.from_numpy(rext[rows]).to(dev))
+
+            self._fan_out(insert)
         self.next_ext += m
         self._labels_stale = True
         return ext_ids
 
     def _insert_shard(self, s: int, vecs: torch.Tensor, rext: torch.Tensor) -> None:
         st = self.shard(s)
+        dev = self.devices[s]
         n = int(self.ns[s])
         m = vecs.shape[0]
         free = torch.nonzero(~st.valid[:n]).squeeze(1)      # ascending
         take = min(free.shape[0], m)
-        slots = torch.cat([free[:take],
-                           torch.arange(n, n + m - take, device=self.device)])
+        slots = torch.cat([free[:take], torch.arange(n, n + m - take, device=dev)])
         slots = slots.to(torch.int32)
         packed = self.packed[s] if self.packed is not None else None
-        insert_batch(st, slots, vecs, torch.ones(m, dtype=torch.bool, device=self.device),
+        insert_batch(st, slots, vecs, torch.ones(m, dtype=torch.bool, device=dev),
                      self.starts[s], self.config, packed)
-        self.ext[s, slots.long()] = rext
+        self.ext[s][slots.long()] = rext
         self.ns[s] = n + m - take
-        self.starts[s] = graph_state.medoid(st, int(self.ns[s]))
+        self.starts[s] = graph_state.medoid(st, int(self.ns[s]))[None]
 
     # ---------------------------------------------------------------- delete
     def delete(self, ext_ids) -> None:
-        """Delete by external id: every shard finds its copies on the device
+        """Delete by external id: every shard finds its copies on its device
         (membership test of its `ext` column), marks them, repairs its
         referencing rows (prune repair, `patch_rows`), clears the deleted
         rows, refreshes an attached packed layout's dirty fat rows, and
@@ -234,12 +324,12 @@ class ShardedGraphIndex:
         ext_ids = np.unique(np.asarray(ext_ids).ravel().astype(np.int32))
         if len(ext_ids) == 0:
             return
-        dead = torch.from_numpy(ext_ids).to(self.device)
-        for s in range(self.n_shards):
+        dead = _per_device(self.devices, torch.from_numpy(ext_ids))
+
+        def delete(s):
             st = self.shard(s)
-            hit = torch.isin(self.ext[s], dead) & st.valid
+            hit = torch.isin(self.ext[s], dead[self.devices[s]]) & st.valid
             marked = delete_mod.mark_deleted(st, torch.nonzero(hit).squeeze(1))
-            self._free_total += int(marked.shape[0])
             self.ext[s].masked_fill_(hit, -1)
             aff = delete_mod.rows_referencing_deleted(st)
             rows = torch.nonzero(aff).squeeze(1)
@@ -251,17 +341,21 @@ class ShardedGraphIndex:
                 for off in range(0, dirty.shape[0], _DELETE_CHUNK):
                     packed_mod.refresh_rows(self.packed[s], st.adjacency,
                                             dirty[off:off + _DELETE_CHUNK])
-            self.starts[s] = graph_state.medoid(st, int(self.ns[s]))
+            self.starts[s] = graph_state.medoid(st, int(self.ns[s]))[None]
+            return int(marked.shape[0])
+
+        self._free_total += sum(self._fan_out(delete))
         self.n_deleted += len(ext_ids)
 
     # ---------------------------------------------------------------- packed
     def attach_packed(self, *, dp: int = 64, train_sample=None) -> None:
-        """Build each shard's packed fat-row layout (enables mode="packed"
-        search).  The projection is trained once, on ``train_sample`` or
-        on up to 256 live rows drawn from every shard's front."""
+        """Build each shard's packed fat-row layout on its device (enables
+        mode="packed" search).  The projection is trained once, on
+        ``train_sample`` or on up to 256 live rows drawn from every
+        shard's front."""
         if train_sample is None:
             per = max(1, int(np.ceil(256 / max(self.n_shards, 1))))
-            parts = [self.stacked.vectors[s, : min(int(n_s), per)].float().cpu().numpy()
+            parts = [self.arrays[s].vectors[: min(int(n_s), per)].float().cpu().numpy()
                      for s, n_s in enumerate(self.ns) if n_s > 0]
             train_sample = (np.concatenate(parts, axis=0) if parts
                             else np.zeros((1, self.dim), np.float32))
@@ -271,26 +365,29 @@ class ShardedGraphIndex:
         )
         self.packed = None      # free the old tables first
         cap = self.cap_per_shard
-        ids = torch.arange(cap, device=self.device)
-        out = []
-        for s in range(self.n_shards):
+        trained = {dev: (proj.to(dev), pscale.to(dev), pbias2.to(dev))
+                   for dev in dict.fromkeys(self.devices)}
+
+        def attach(s):
             st = self.shard(s)
-            p = packed_mod.alloc_packed(proj, pscale, pbias2, cap,
+            ids = torch.arange(cap, device=self.devices[s])
+            p = packed_mod.alloc_packed(*trained[self.devices[s]], cap,
                                         self.config.max_degree_with_slack)
             codes, aux = packed_mod.encode(p, st.vectors, self.config.metric)
             packed_mod.set_self_codes(p, ids, codes, aux)
             for off in range(0, cap, _ATTACH_ROWS):
                 packed_mod.refresh_rows(p, st.adjacency, ids[off:off + _ATTACH_ROWS])
-            out.append(p)
-        self.packed = out
+            return p
+
+        self.packed = self._fan_out(attach)
 
     # ---------------------------------------------------------------- labels
     def attach_labels(self, labels_per_ext: list) -> None:
         """Assign labels keyed by EXTERNAL id (``labels_per_ext[e]``: the
         label strings of external id e).  Each shard holds the bitset rows
-        of its own slots, so filtered search runs shard-local.  External
-        ids beyond the list (or added later) carry no labels and never
-        match a predicate."""
+        of its own slots on its device, so filtered search runs
+        shard-local.  External ids beyond the list (or added later) carry
+        no labels and never match a predicate."""
         self._labels_per_ext = list(labels_per_ext)
         self._labels_stale = True
         self._rebuild_label_bits()
@@ -306,33 +403,37 @@ class ShardedGraphIndex:
             lists = lists + [[] for _ in range(n_ext - len(lists))]
         ls = LabelSet.from_lists(lists, capacity=n_ext, device=self.device)
         self.label_vocab = ls.vocab
-        safe = self.ext.long().clamp(0, ls.bits.shape[0] - 1)
-        self.label_bits = torch.where((self.ext >= 0)[:, :, None], ls.bits[safe], 0)
+        bits = _per_device(self.devices, ls.bits)
+
+        def scatter(s):
+            e, b = self.ext[s], bits[self.devices[s]]
+            safe = e.long().clamp(0, b.shape[0] - 1)
+            return torch.where((e >= 0)[:, None], b[safe], 0)
+
+        self.label_bits = self._fan_out(scatter)
         self._labels_stale = False
 
     # ---------------------------------------------------------------- search
-    def _queries(self, queries) -> torch.Tensor:
-        return torch.as_tensor(queries, dtype=torch.float32, device=self.device)
-
-    def _merged(self, q, k, walk):
+    def _merged(self, queries, k, walk):
         """Run ``walk(s, shard, queries) -> (dists [B, L], local ids [B, L]
-        with -1 where dropped, cmps [B])`` on every shard, map the ids to
-        external ids and merge.  Returns host (dists, ids, cmps summed over
-        the shards)."""
+        with -1 where dropped, cmps [B])`` on every shard, on its device,
+        map the ids to external ids and merge the lists on the first
+        device.  Returns host (dists, ids, cmps summed over the shards)."""
+        q = _per_device(self.devices, torch.as_tensor(queries, dtype=torch.float32))
         outs = []
-        for off in range(0, q.shape[0], _QUERY_ROWS):
-            qb = q[off:off + _QUERY_ROWS]
-            all_d, all_i, cmps = [], [], 0
-            for s in range(self.n_shards):
+        for off in range(0, q[self.device].shape[0], _QUERY_ROWS):
+            def one(s, off=off):
                 st = self.shard(s)
-                d, ids, c = walk(s, st, qb)
+                d, ids, c = walk(s, st, q[self.devices[s]][off:off + _QUERY_ROWS])
                 safe = ids.long().clamp(0, self.cap_per_shard - 1)
                 ok = (ids >= 0) & st.valid[safe]
-                all_d.append(torch.where(ok, d, float("inf")))
-                all_i.append(torch.where(ok, self.ext[s][safe], -1))
-                cmps = cmps + c
+                return tuple(t.to(self.device) for t in (
+                    torch.where(ok, d, float("inf")),
+                    torch.where(ok, self.ext[s][safe], -1), c))
+
+            all_d, all_i, cmps = zip(*self._fan_out(one))
             md, mi = _merge_topk_dedup(torch.stack(all_d), torch.stack(all_i), k)
-            outs.append((md, mi, cmps))
+            outs.append((md, mi, sum(cmps)))
         return tuple(torch.cat(t).cpu().numpy() for t in zip(*outs))
 
     def search(self, queries, k: int, *, l_search: int | None = None,
@@ -341,7 +442,6 @@ class ShardedGraphIndex:
         the shards).  mode="packed" walks each shard's packed layout
         (attaching one first if needed) and reranks its list at full
         precision before the merge."""
-        q = self._queries(queries)
         l = l_search or max(k, self.config.l_build)
         cfg = self.config
         if mode == "packed":
@@ -371,7 +471,7 @@ class ShardedGraphIndex:
                 return res.dists, res.ids, res.cmps
         else:
             raise ValueError(f"unknown search mode {mode!r}")
-        return self._merged(q, k, walk)
+        return self._merged(queries, k, walk)
 
     def search_filtered(self, queries, predicate, k: int = 10, *,
                         l_search: int | None = None,
@@ -403,7 +503,7 @@ class ShardedGraphIndex:
             )
             return res.match_d, res.match_i, res.cmps
 
-        return self._merged(self._queries(queries), k, walk)
+        return self._merged(queries, k, walk)
 
     def search_range(self, queries, radius: float, *,
                      l_init: int | None = None, l_max: int = 1024):
@@ -414,6 +514,19 @@ class ShardedGraphIndex:
         return range_search(self, queries, radius, l_init=l_init, l_max=l_max)
 
     # -------------------------------------------------------------- save/load
+    def _host_arrays(self) -> dict:
+        """The record's arrays: each shard's tensors stacked on the host
+        into the reference's ``[n_shards, ...]`` layout."""
+        stack = lambda ts: np.stack([t.cpu().numpy() for t in ts])  # noqa: E731
+        field = lambda f: [getattr(st, f) for st in self.arrays]  # noqa: E731
+        out = {"vectors": np.stack([graph_state.vectors_to_host(v)
+                                    for v in field("vectors")])}
+        out |= {f: stack(field(f))
+                for f in ("sq_norms", "adjacency", "degrees", "valid", "vec_sum")}
+        out |= {"ext": stack(self.ext), "ns": self.ns.astype(np.int32),
+                "starts": stack(self.starts)}
+        return out
+
     def save(self, path: str) -> None:
         """Persist all shards and the external ids in the reference's record
         (kind "sharded_graph_index": the stacked arrays, the eight config
@@ -422,8 +535,6 @@ class ShardedGraphIndex:
         from diskann_tpu_torch.io_.record import save_record
 
         cfg = self.config
-        st = self.stacked
-        host = lambda t: t.cpu().numpy()  # noqa: E731
         save_record(
             path,
             kind="sharded_graph_index",
@@ -445,25 +556,16 @@ class ShardedGraphIndex:
                     "beam_width": cfg.beam_width,
                 },
             },
-            arrays={
-                "vectors": graph_state.vectors_to_host(st.vectors),
-                "sq_norms": host(st.sq_norms),
-                "adjacency": host(st.adjacency),
-                "degrees": host(st.degrees),
-                "valid": host(st.valid),
-                "vec_sum": host(st.vec_sum),
-                "ext": host(self.ext),
-                "ns": self.ns.astype(np.int32),
-                "starts": host(self.starts),
-            },
+            arrays=self._host_arrays(),
             bfloat16=("vectors",) if self.dtype == torch.bfloat16 else (),
         )
 
     @classmethod
     def load(cls, path: str, *, device=None) -> "ShardedGraphIndex":
-        """Load a record written by `save` (of either package) onto
-        ``device`` (the CUDA card by default), with the record's shard
-        count and vector dtype."""
+        """Load a record written by `save` (of either package) with the
+        record's shard count and vector dtype.  ``device``: one device for
+        every shard (the CUDA card by default) or a sequence of one device
+        per shard, which must match the record's shard count."""
         from diskann_tpu_torch.io_.record import load_record
 
         manifest, arrays = load_record(path)
@@ -480,55 +582,68 @@ class ShardedGraphIndex:
             beam_width=c.get("beam_width", 1),
         )
         dtype = manifest["artifacts"]["vectors"]["dtype"]
-        idx = cls(meta["n_shards"], meta["dim"], cfg, cap_per_shard=1, dtype=dtype,
-                  device=device)
-        dev = idx.device
-        put = lambda name: torch.from_numpy(np.ascontiguousarray(arrays[name])).to(dev)  # noqa: E731
-        idx.stacked = GraphArrays(
-            vectors=graph_state.vectors_from_host(arrays["vectors"], dtype).to(dev),
-            sq_norms=put("sq_norms"),
-            adjacency=put("adjacency"),
-            degrees=put("degrees"),
-            valid=put("valid"),
-            vec_sum=put("vec_sum"),
-        )
+        idx = cls(_record_placement(meta["n_shards"], device), meta["dim"], cfg,
+                  cap_per_shard=1, dtype=dtype)
+        idx._adopt_host(arrays, dtype)
         idx.cap_per_shard = int(meta["cap_per_shard"])
-        idx.ext = put("ext")
         idx.ns = np.asarray(arrays["ns"], np.int64).copy()
-        idx.starts = put("starts")
         idx.next_ext = int(meta["next_ext"])
         idx.n_deleted = int(meta.get("n_deleted", 0))
         idx._free_total = int(meta.get("free_total", 0))
         return idx
 
+    def _adopt_host(self, arrays: dict, dtype=None) -> None:
+        """Take each shard's slice of the stacked host ``arrays`` (the
+        record's `GraphArrays` fields, ``ext`` and ``starts``, writable
+        numpy arrays) onto its device."""
+        def adopt(s):
+            dev = self.devices[s]
 
-def sharded_flat_search(n_shards: int, vectors, queries, k: int,
+            def put(name):
+                a = np.ascontiguousarray(arrays[name][s])
+                return torch.from_numpy(a).to(dev, _HOST_DTYPES[name])
+
+            self.arrays[s] = GraphArrays(
+                vectors=graph_state.vectors_from_host(arrays["vectors"][s], dtype).to(dev),
+                **{f: put(f) for f in GraphArrays._fields if f != "vectors"})
+            self.ext[s] = put("ext")
+            self.starts[s] = put("starts").reshape(1)
+
+        self._fan_out(adopt)
+
+
+def sharded_flat_search(shards, vectors, queries, k: int,
                         metric: Metric = Metric.L2, *, device=None):
-    """Exact top-k over a database cut into ``n_shards`` blocks of rows:
-    each block's distances and local top-k, then a merge of the blocks'
-    lists.  Equal distances keep ascending id order (each block's top-k
-    does, the blocks are in id order and the merge sort is stable), as
-    `FlatIndex` does.  ``vectors`` and ``queries``: numpy arrays or
-    tensors; the scan runs on ``device`` (default: the vectors' device if
-    a tensor, else the CUDA card).  Returns (dists [B, k'], ids [B, k'])
-    tensors, k' = min(k, the rows the blocks offer)."""
-    if device is None and isinstance(vectors, torch.Tensor):
+    """Exact top-k over a database cut into blocks of rows, one per shard:
+    each block's distances and local top-k on its device, then a merge of
+    the blocks' lists on the first device.  Equal distances keep
+    ascending id order (each block's top-k does, the blocks are in id
+    order and the merge sort is stable), as `FlatIndex` does.
+
+    ``shards``: the block count, every block on ``device`` (default: the
+    vectors' device if a tensor, else the CUDA card), or a sequence of
+    devices, block ``s`` scanned on ``shards[s]``.  ``vectors`` and
+    ``queries``: numpy arrays or tensors.  Returns (dists [B, k'], ids
+    [B, k']) tensors on the first device, k' = min(k, the rows the blocks
+    offer)."""
+    if isinstance(shards, (int, np.integer)) and device is None \
+            and isinstance(vectors, torch.Tensor):
         device = vectors.device
-    device = default_device(device)
-    x = torch.as_tensor(vectors, device=device)
-    q = torch.as_tensor(queries, dtype=torch.float32, device=device)
-    n = x.shape[0]
-    local_n = -(-n // n_shards)
-    all_d, all_i = [], []
-    for s in range(n_shards):
-        v = x[s * local_n:(s + 1) * local_n]
+    devices = _placement(shards, device)
+    n = vectors.shape[0]
+    local_n = -(-n // len(devices))
+    q = _per_device(devices, torch.as_tensor(queries, dtype=torch.float32))
+
+    def scan(s):
+        v = torch.as_tensor(vectors[s * local_n:(s + 1) * local_n], device=devices[s])
         if v.shape[0] == 0:
-            continue
-        dist = distance_to_set(q, v, metric, x_sq_norms=squared_norms(v))
-        kk = min(k, local_n)
-        dd, cols = smallest_k(dist, min(kk, v.shape[0]))
-        all_d.append(dd)
-        all_i.append(cols.to(torch.int32) + s * local_n)
-    md, mi = sort_with(torch.cat(all_d, 1), torch.cat(all_i, 1))
+            return None
+        dist = distance_to_set(q[devices[s]], v, metric, x_sq_norms=squared_norms(v))
+        dd, cols = smallest_k(dist, min(k, local_n, v.shape[0]))
+        return dd.to(devices[0]), (cols.to(torch.int32) + s * local_n).to(devices[0])
+
+    parts = [p for p in _fan_out(devices, scan) if p is not None]
+    md, mi = sort_with(torch.cat([p[0] for p in parts], 1),
+                       torch.cat([p[1] for p in parts], 1))
     out = min(k, md.shape[1])
     return md[:, :out], mi[:, :out]

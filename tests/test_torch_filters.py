@@ -9,7 +9,11 @@
   R=16, router on with S=512 so both packages take exact top-k), carried
   across by `convert.py` with its labels: the scan, the packed walk with
   its compact AdaptiveL retry, the full inline walk with AdaptiveL resume,
-  multihop, `search(mode="full")` and float16 queries.  The float32
+  multihop, `search(mode="full")` and float16 queries; the packed walk
+  with the queries through the int8 wire (every name of it) and through
+  bfloat16; the reference's full route with the int8 wire, which
+  truncates the queries, against the port's, which takes the wire
+  (`test_reference_fault_i8_wire_full_route`).  The float32
   products of the two frameworks sum in different orders, so near-tied
   distances may swap: each path must give identical ids for >= 99% of
   (query, rank) entries, and equal ids must carry equal distances within
@@ -324,6 +328,56 @@ def test_packed_search_query_dtype_matches_jax(indices):
     jidx, tidx, q, _ = indices
     kw = dict(l_search=24, beam_width=4, mode="packed", query_dtype=np.float16)
     _same(jidx.search(q, K, **kw), tidx.search(q, K, **kw))
+
+
+@pytest.mark.parametrize("wire", ["i8", "int8", "i8pack", np.int8, "bfloat16"])
+def test_packed_search_query_wire_matches_jax(indices, wire):
+    jidx, tidx, q, _ = indices
+    kw = dict(l_search=24, beam_width=4, mode="packed")
+    want = jidx.search(q, K, query_dtype=jnp.bfloat16 if wire == "bfloat16" else wire, **kw)
+    got = tidx.search(q, K, query_dtype=wire, **kw)
+    np.testing.assert_array_equal(got[1], np.asarray(want[1]))
+    np.testing.assert_allclose(got[0], np.asarray(want[0]), rtol=1e-5, atol=1e-5)
+
+
+def test_reference_fault_i8_wire_full_route(indices):
+    """The reference's full route casts the queries to ``query_dtype``:
+    "i8" is int64 to numpy and "int8" int8, so both truncate the queries
+    to integers, and "i8pack" raises.  The port's full route takes the
+    int8 wire, as both packages' quantized routes do."""
+    from diskann_tpu.graph.index import _decode_i8pack as j_decode
+    from diskann_tpu.graph.index import _encode_i8pack as j_encode
+
+    jidx, tidx, q, _ = indices
+    kw = dict(l_search=32, beam_width=4, mode="full")
+    truncated = q.astype(np.int64).astype(np.float32)
+    for name in ("i8", "int8"):
+        np.testing.assert_array_equal(np.asarray(jidx.search(q, K, query_dtype=name, **kw)[1]),
+                                      np.asarray(jidx.search(truncated, K, **kw)[1]))
+    with pytest.raises(TypeError):
+        jidx.search(q, K, query_dtype="i8pack", **kw)
+    wired = np.array(j_decode(jnp.asarray(j_encode(q)), D))
+    for name in ("i8", "int8", "i8pack"):
+        got = tidx.search(q, K, query_dtype=name, **kw)
+        want = tidx.search(wired, K, **kw)
+        for g, w in zip(got[:2], want[:2]):
+            np.testing.assert_array_equal(g, w)
+        _same(jidx.search(wired, K, **kw), got)
+    # the fault changes the answers: the truncated queries find other points
+    assert (got[1] != np.asarray(jidx.search(q, K, query_dtype="i8", **kw)[1])).mean() > 0.5
+
+
+def test_i8_wire_copy_matches_jax():
+    from diskann_tpu.graph.index import _decode_i8pack as j_decode
+    from diskann_tpu.graph.index import _encode_i8pack as j_encode
+
+    rng = np.random.default_rng(4)
+    q = rng.standard_normal((64, 20)).astype(np.float32) * rng.uniform(0.01, 50, (64, 1))
+    q[3] = 0.0                                      # an all-zero row: the 1e-12 floor
+    wire = tindex._encode_i8pack(q)
+    np.testing.assert_array_equal(wire, j_encode(q))
+    np.testing.assert_array_equal(n(tindex._decode_i8pack(t(wire), 20)),
+                                  np.asarray(j_decode(jnp.asarray(wire), 20)))
 
 
 def test_reattached_labels_refresh_the_count(indices):

@@ -20,6 +20,7 @@ from diskann_tpu import FlatIndex as JFlat
 from diskann_tpu import GraphConfig as JConfig
 from diskann_tpu import GraphIndex as JIndex
 from diskann_tpu import Metric as JMetric
+from diskann_tpu.graph import packed as jpk
 from diskann_tpu.graph.state import start_ids as j_start_ids
 from diskann_tpu.graph.index import _filter_deleted as j_filter_deleted
 from diskann_tpu_torch import FlatIndex, GraphConfig, GraphIndex, Metric
@@ -152,7 +153,8 @@ def test_routed_build_keeps_invariants():
 def test_unported_modes_raise(torch_index):
     # the quantized modes are ported now: without their attachment they
     # ask for it; mode="auto" is ported (a small index takes the flat scan)
-    # and an unknown mode raises; the i8 query wire is not ported
+    # and an unknown mode raises; so does a query wire neither package has
+    # (the int8 wire is ported: `test_torch_filters.py`)
     idx, _ = torch_index
     with pytest.raises(ValueError, match="attach_pq"):
         idx.search(np.zeros((1, D), np.float32), K, mode="pq")
@@ -160,9 +162,41 @@ def test_unported_modes_raise(torch_index):
     with pytest.raises(ValueError, match="unknown search mode"):
         idx.search(np.zeros((1, D), np.float32), K, mode="nope")
     with pytest.raises(NotImplementedError):
-        idx.search(np.zeros((1, D), np.float32), K, mode="packed", query_dtype="i8")
+        idx.search(np.zeros((1, D), np.float32), K, mode="packed", query_dtype=np.int16)
     with pytest.raises(ValueError):
         GraphIndex.build(np.zeros((8, D), np.float32), build_mode="pq", device=CPU)
+
+
+def test_len_is_the_live_count_like_jax(jax_index):
+    tidx = graph_index_from_arrays(**jax_index_arrays(jax_index))
+    assert len(tidx) == len(jax_index) == tidx.n_live == N
+    tidx.delete(np.arange(0, 300, 3))
+    assert len(tidx) == N - 100
+    # an empty index has length 0 and is falsy, in both packages
+    assert len(GraphIndex(D, device=CPU)) == len(JIndex(D)) == 0
+    assert not GraphIndex(D, device=CPU)
+
+
+def test_attach_packed_takes_the_reference_options(data, jax_index):
+    # writable and spill change nothing; refresh_block only chunks the
+    # refresh: every option gives the table of the default call, and that
+    # table has JAX's ids and codes (the codes within encode's rounding)
+    _, q, _ = data
+    tidx = graph_index_from_arrays(**jax_index_arrays(jax_index))
+    tidx.attach_packed(dp=32)
+    default = tidx.packed.rows.clone()
+    want = tidx.search(q, K, l_search=L, beam_width=4, mode="packed")
+    tidx.attach_packed(dp=32, writable=False, refresh_block=300, spill=True)
+    assert torch.equal(tidx.packed.rows, default)
+    got = tidx.search(q, K, l_search=L, beam_width=4, mode="packed")
+    np.testing.assert_array_equal(got[1], want[1])
+    jrows = np.asarray(jpk.logical_rows(jax_index.packed))
+    trows = n(tpk.logical_rows(tidx.packed))
+    off = tidx.packed.aux_off_w
+    np.testing.assert_array_equal(trows[:N, :off], jrows[:N, :off])
+    codes_t, codes_j = n(tidx.packed.self_codes), np.asarray(jax_index.packed.self_codes)
+    diff = codes_t.astype(np.int32) - codes_j
+    assert np.abs(diff).max() <= 1 and (diff != 0).mean() <= 1e-3
 
 
 def test_filter_deleted_matches_jax():

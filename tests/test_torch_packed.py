@@ -118,6 +118,33 @@ def test_append_edges_byte_identical():
     assert torch.equal(via_append[:live], via_refresh[:live])
 
 
+def test_layout_helpers_match_jax():
+    # row_nbytes, the section offsets, logical_rows, and a table allocated
+    # with the reference's writable=False (no guard to lift here)
+    _, jp, tp = _states()
+    assert (tp.aux_off_w, tp.code_off_w) == (jp.aux_off_w, jp.code_off_w)
+    for rp, dp in ((20, 16), (84, 128), (88, 64), (16, 4)):
+        assert tpk.row_nbytes(rp, dp) == jpk.row_nbytes(rp, dp)
+    np.testing.assert_array_equal(n(tpk.logical_rows(tp)), np.asarray(jpk.logical_rows(jp)))
+    jw = jpk.alloc_packed(jp.proj, jp.pscale, jp.pbias2, 64, 20, writable=False)
+    tw = tpk.alloc_packed(tp.proj, tp.pscale, tp.pbias2, 64, 20, writable=False)
+    for f in PACKED_FIELDS:
+        np.testing.assert_array_equal(n(getattr(tw, f)), np.asarray(getattr(jw, f)))
+
+
+def test_append_edges_deferred_byte_identical():
+    rng, jp, tp = _states()
+    cap, rs = jp.self_codes.shape[0], 20
+    pairs = rng.choice(cap * rs, size=512, replace=False)
+    tgt, slot = (pairs // rs).astype(np.int32), (pairs % rs).astype(np.int32)
+    src = rng.integers(0, cap, size=512).astype(np.int32)
+    ok = rng.random(512) > 0.1
+    ja = jpk.append_edges_deferred(jp, tgt, slot, src, ok)
+    ta = tpk.append_edges_deferred(tp, tgt, slot, src, ok)
+    live = cap * jp.nwr
+    np.testing.assert_array_equal(n(ta.rows)[:live], np.asarray(ja.rows)[:live])
+
+
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 def test_encode_close_to_jax(metric):
     rng = np.random.default_rng(8)

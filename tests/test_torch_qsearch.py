@@ -15,12 +15,16 @@ by `convert.py` with its trained state.
   checked too), distances within 1e-5.
 - The port's own `attach_sq` / `attach_minmax` / `attach_pq(pq=...)` on
   the same vectors: codes equal or off by one on <= 0.1% of entries.
+- The same searches at W=4 with the queries through the int8 wire
+  (``query_dtype="i8"``) and through bfloat16: ids, `cmps` and hops
+  bitwise JAX's with the same ``query_dtype``.
 - `search_filtered(mode="sq")` and the other quantized modes take the
   full-precision route, as in JAX: the same ids as JAX.
 - An insert grows the code tables without encoding the new rows (the
   reference's behaviour).
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -111,6 +115,22 @@ def test_quant_search_matches_jax(setup, mode, w):
     td, ti, ts = p.search(q, 10, **kw)
     assert (ti == ji).mean() >= 0.99, (mode, (ti == ji).mean())
     assert (ts.cmps == js.cmps).mean() >= 0.99, mode
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_array_equal(ts.cmps, js.cmps)
+    np.testing.assert_array_equal(ts.hops, js.hops)
+    np.testing.assert_allclose(td, jd, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("wire", ["i8", "bfloat16"])
+@pytest.mark.parametrize("mode", MODES)
+def test_quant_search_query_wire_matches_jax(setup, mode, wire):
+    _, q, j, pqs = setup
+    m = _with_pq(j, pqs, mode)
+    p = _port(j)
+    kw = dict(l_search=32, beam_width=4, mode=m)
+    jd, ji, js = j.search(q, 10, query_dtype=jnp.bfloat16 if wire == "bfloat16" else wire,
+                          **kw)
+    td, ti, ts = p.search(q, 10, query_dtype=wire, **kw)
     np.testing.assert_array_equal(ti, ji)
     np.testing.assert_array_equal(ts.cmps, js.cmps)
     np.testing.assert_array_equal(ts.hops, js.hops)

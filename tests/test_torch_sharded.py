@@ -1,6 +1,6 @@
-"""The port's sharded index (`parallel/sharded.py`, every shard on one
-device) against the JAX package's (one shard per device of the 8-device
-CPU mesh that `conftest.py` sets up).
+"""The port's sharded index (`parallel/sharded.py`) against the JAX
+package's (one shard per device of the 8-device CPU mesh that
+`conftest.py` sets up).
 
 - A JAX index over the 8-device mesh (overlap-2 routing, a delete, labels,
   a packed layout), carried across by `convert.sharded_index_from_arrays`
@@ -16,6 +16,15 @@ CPU mesh that `conftest.py` sets up).
   with 4 shards.  Where a case measures recall, the JAX package builds the
   same data over a 4-device mesh, and the port must reach its recall less
   0.01; no deleted external id is returned; each overlap copy appears once.
+- The multi-device form (``shards`` a sequence of devices, one per shard)
+  against the int form on the same data: build, full / packed / filtered /
+  range search, delete, grow and save -> load give bitwise-equal ids,
+  distances and cmps and byte-equal records, with one host worker (every
+  shard on "cpu") and with two ("cpu" and "cpu:0" are distinct devices to
+  the fan-out, so two workers run the shards at once).  The carried JAX
+  index crosses into an 8-device list and keeps JAX's ids.  On a host
+  without CUDA cards every device here is the CPU, so placement on
+  several cards is held only by `chip_smoke.py`'s [sharded] phase.
 """
 
 import dataclasses
@@ -35,6 +44,7 @@ from diskann_tpu.parallel import ShardedGraphIndex as JSharded
 from diskann_tpu_torch import FlatIndex, GraphConfig, Metric
 from diskann_tpu_torch.convert import sharded_index_from_arrays
 from diskann_tpu_torch.parallel import ShardedGraphIndex, sharded_flat_search
+from diskann_tpu_torch.parallel.sharded import _fan_out
 from diskann_tpu_torch.parallel.partition import (
     estimate_build_ram_bytes, kmeans_partition, shard_lists,
 )
@@ -286,7 +296,7 @@ def test_sharded_overlap2_dedup(rng):
     idx = _index(d, 1024)
     ext = idx.insert(x, assign)
     np.testing.assert_array_equal(ext, np.arange(n))
-    cols = idx.ext.numpy()
+    cols = idx._host_arrays()["ext"]
     assert (np.bincount(cols[cols >= 0], minlength=n) == 2).all()
     _, gids, _ = idx.search(q, k=10, l_search=40)
     for row in gids:
@@ -390,14 +400,148 @@ def test_sharded_delete_of_start_node_and_packed_mirror(rng):
     eids = idx.insert(x)
     idx.attach_packed(dp=32)
     e2 = idx.insert(rng.standard_normal((64, d)).astype(np.float32) * 0.05)
-    starts = idx.starts.numpy().ravel()
-    ecol = idx.ext.numpy()
-    start_ext = np.array([ecol[s, starts[s]] for s in range(S)])
+    host = idx._host_arrays()
+    starts = host["starts"].ravel()
+    start_ext = np.array([host["ext"][s, starts[s]] for s in range(S)])
     assert (start_ext >= n).any(), "precondition: a start moved to a new row"
     idx.delete(e2)
-    starts2 = idx.starts.numpy().ravel()
-    valid = idx.stacked.valid.numpy()
-    assert all(valid[s, starts2[s]] for s in range(S))
+    host = idx._host_arrays()
+    assert all(host["valid"][s, host["starts"][s, 0]] for s in range(S))
     for mode in ("full", "packed"):
         _, gids, _ = idx.search(q, k=10, l_search=48, mode=mode)
         assert knn_recall(gids, eids[gt_i], 10) >= 0.9, mode
+
+
+# ---------------------------------------- the multi-device form on the CPU
+PLACEMENTS = {"one_worker": [CPU] * S, "two_workers": ["cpu", "cpu:0"] * (S // 2)}
+
+
+def _lifecycle(shards, tmp, **kw):
+    """Every operation of the index, on ``shards`` (an int and ``kw``, or a
+    device list): each result, and the record's files, by name."""
+    rng = np.random.default_rng(31)
+    x, centers = _clustered(rng, 600, 16)
+    q = _queries(rng, centers, 24)
+    idx = ShardedGraphIndex(shards, 16, GraphConfig(**CFG), cap_per_shard=128, **kw)
+    out = {}
+    idx.insert(x[:400], np.stack([np.arange(400) % S, (np.arange(400) + 1) % S], 1))
+    out["grown_cap"] = np.array(idx.cap_per_shard)          # 200 rows a shard: grew
+    idx.attach_packed(dp=16, train_sample=x[:256])
+    idx.attach_labels([["red"] if i % 3 else ["blue"] for i in range(600)])
+    for mode in ("full", "packed"):
+        out[mode] = idx.search(q, k=10, l_search=32, mode=mode)
+    out["filtered"] = idx.search_filtered(q, "blue", k=10, l_search=40)
+    dall = ((q[:, None, :] - x[None, :400, :]) ** 2).sum(-1)
+    out["range"] = idx.search_range(q[:6], float(np.quantile(dall, 0.01)), l_init=32)
+    idx.delete(np.arange(0, 400, 7))
+    idx.insert(x[400:])                      # recycles the freed slots
+    for mode in ("full", "packed"):
+        out[f"after_{mode}"] = idx.search(q, k=10, l_search=32, mode=mode)
+    out["free_total"] = np.array(idx._free_total)
+    idx.save(str(tmp))
+    out["record"] = {f.name: f.read_bytes() for f in sorted(tmp.iterdir())}
+    dev = shards if kw.get("device") is None else kw["device"]
+    re = ShardedGraphIndex.load(str(tmp), device=dev)
+    out["reloaded"] = re.search(q, k=10, l_search=32)
+    return out
+
+
+@pytest.fixture(scope="module")
+def int_form(tmp_path_factory):
+    return _lifecycle(S, tmp_path_factory.mktemp("int_form"), device=CPU)
+
+
+@pytest.mark.parametrize("placement", list(PLACEMENTS))
+def test_device_list_matches_the_int_form(int_form, placement, tmp_path):
+    got = _lifecycle(PLACEMENTS[placement], tmp_path)
+    assert got.pop("record") == int_form["record"]
+    for key, want in int_form.items():
+        if key == "record":
+            continue
+        if isinstance(want, np.ndarray):
+            np.testing.assert_array_equal(got[key], want, err_msg=key)
+            continue
+        assert len(got[key]) == len(want), key       # (dists, ids, cmps) or range lists
+        for g, w in zip(got[key], want):
+            np.testing.assert_array_equal(g, w, err_msg=key)
+
+
+@pytest.mark.parametrize("placement", list(PLACEMENTS))
+def test_every_shard_lives_on_its_device(placement, tmp_path):
+    names = PLACEMENTS[placement]
+    idx = ShardedGraphIndex(names, 8, GraphConfig(max_degree=8, l_build=16),
+                            cap_per_shard=16)
+    assert idx.devices == [torch.device(d) for d in names]
+    assert idx.device == idx.devices[0] and idx.n_shards == len(names)
+    x = np.random.default_rng(2).standard_normal((64, 8)).astype(np.float32)
+    idx.insert(x)
+    idx.attach_packed(dp=8)
+    idx.attach_labels([["a"]] * 64)
+    for s, name in enumerate(names):
+        want = torch.device(name).type        # a CPU tensor reports "cpu"
+        tensors = (*idx.shard(s), idx.ext[s], idx.starts[s], idx.label_bits[s],
+                   idx.packed[s].rows, idx.packed[s].proj)
+        assert all(t.device.type == want for t in tensors)
+    if placement == "one_worker":
+        assert all(t.device == CPU for s in range(S) for t in idx.shard(s))
+
+
+def test_carried_index_on_a_device_list_matches_jax(carried):
+    j, _, _, q = carried
+    p = sharded_index_from_arrays(**(jax_sharded_arrays(j) | {"device": [CPU] * 8}))
+    assert p.devices == [CPU] * 8
+    for mode in ("full", "packed"):
+        _same(p.search(q, k=10, l_search=40, mode=mode),
+              j.search(q, k=10, l_search=40, mode=mode), mode, q)
+    _same(p.search_filtered(q, "red", k=10, l_search=48),
+          j.search_filtered(q, "red", k=10, l_search=48), "red", q)
+
+
+def test_device_list_of_the_wrong_length_raises(carried, tmp_path):
+    _, p, _, _ = carried
+    p.save(str(tmp_path / "r"))
+    with pytest.raises(ValueError, match="8 shards, 4 devices"):
+        ShardedGraphIndex.load(str(tmp_path / "r"), device=[CPU] * 4)
+    with pytest.raises(ValueError, match="8 shards, 3 devices"):
+        sharded_index_from_arrays(**(jax_sharded_arrays(carried[0]) | {"device": [CPU] * 3}))
+    with pytest.raises(ValueError, match="not both"):
+        ShardedGraphIndex([CPU] * 2, 8, device=CPU)
+
+
+@pytest.mark.parametrize("placement", list(PLACEMENTS))
+def test_sharded_flat_on_a_device_list_keeps_flat_ids(placement, rng):
+    x = rng.standard_normal((1000, 16)).astype(np.float32)
+    x[500:540] = x[:40]                             # ties across blocks
+    q = np.concatenate([x[:8] + 0.01, rng.standard_normal((8, 16)).astype(np.float32)])
+    d, i = sharded_flat_search(PLACEMENTS[placement], x, q, k=12)
+    gt_d, gt_i = FlatIndex(x, Metric.L2, device=CPU).search(q, k=12)
+    np.testing.assert_array_equal(i.numpy(), gt_i)
+    np.testing.assert_array_equal(d.numpy(), gt_d)
+    want = sharded_flat_search(S, x, q, k=12, device=CPU)
+    assert torch.equal(i, want[1]) and torch.equal(d, want[0])
+
+
+def test_fan_out_keeps_shard_order_and_raises():
+    import threading
+    import time
+
+    devices = [torch.device(d) for d in ("cpu", "cpu:0") * 3]
+    threads = {}
+
+    def slow_first(s):
+        time.sleep(0.05 * (len(devices) - s))      # later shards finish first
+        threads[s] = threading.get_ident()
+        return s * 10
+
+    assert _fan_out(devices, slow_first) == [0, 10, 20, 30, 40, 50]
+    # one worker per device, each running its shards in order
+    assert len({threads[s] for s in (0, 2, 4)}) == 1
+    assert threads[0] != threads[1]
+
+    def fails_on_three(s):
+        if s == 3:
+            raise RuntimeError("shard 3 failed")
+        return s
+
+    with pytest.raises(RuntimeError, match="shard 3 failed"):
+        _fan_out(devices, fails_on_three)
