@@ -26,10 +26,11 @@ from typing import NamedTuple
 import torch
 
 from diskann_tpu_torch.graph import packed as packed_mod
+from diskann_tpu_torch.graph import steps
 from diskann_tpu_torch.graph.config import GraphConfig
-from diskann_tpu_torch.graph.prune import robust_prune
+from diskann_tpu_torch.graph.prune import robust_prune_steps
 from diskann_tpu_torch.graph.scorers import packed_router_starts, packed_scorer
-from diskann_tpu_torch.graph.search import beam_search, beam_search_scored
+from diskann_tpu_torch.graph.search import beam_search_scored_steps, beam_search_steps
 from diskann_tpu_torch.graph.state import GraphArrays, set_vectors, to_stored
 from diskann_tpu_torch.ops.distance import pairwise_distance
 from diskann_tpu_torch.ops.topk import SENTINEL, sort_with
@@ -57,6 +58,21 @@ def chunked_robust_prune(
     [chunk, C, d] candidate-vector gather demands.  Vectors of another
     dtype are lifted to float32 as they are gathered.  Returns (ids [M,
     degree], dists [M, degree], count [M])."""
+    return steps.run(chunked_robust_prune_steps(**locals()))
+
+
+def chunked_robust_prune_steps(
+    vectors: torch.Tensor,
+    p_vecs: torch.Tensor,      # [M, d]
+    cand_ids: torch.Tensor,    # [M, C]
+    cand_d: torch.Tensor | None,
+    self_ids: torch.Tensor,    # [M]
+    config: GraphConfig,
+    *,
+    degree: int,
+    chunk: int = 0,
+):
+    """The stepping form of `chunked_robust_prune` (`graph/steps.py`)."""
     m, c = cand_ids.shape
     if chunk <= 0:
         per_row = c * vectors.shape[1] * 4 * 2
@@ -66,10 +82,10 @@ def chunked_robust_prune(
     for s in range(0, m, chunk):
         ci = cand_ids[s:s + chunk]
         cvec = vectors[ci.long().clamp(0, n - 1)].float()
-        outs.append(robust_prune(
+        outs.append((yield from robust_prune_steps(
             p_vecs[s:s + chunk].float(), ci, None if cand_d is None else cand_d[s:s + chunk],
             cvec, self_ids[s:s + chunk], config, degree=degree,
-        ))
+        )))
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
@@ -98,6 +114,23 @@ def insert_batch(
     is the full-precision `beam_search` from ``start_ids`` (``router`` is
     ignored) and the prune takes the walk's distances.  Returns (state,
     packed, stats)."""
+    return steps.run(insert_batch_steps(**locals()))
+
+
+def insert_batch_steps(
+    state: GraphArrays,
+    slot_ids: torch.Tensor,     # [M] i32 target slots (-1 for padding rows)
+    new_vecs: torch.Tensor,     # [M, d] f32 (cast to the stored dtype)
+    row_valid: torch.Tensor,    # [M] bool
+    start_ids: torch.Tensor,    # [S] i32
+    config: GraphConfig,
+    packed: packed_mod.PackedState | None = None,
+    *,
+    backedge_src_cap: int = 64,
+    router=None,                # (rc [S, dp] i8, raux [S] f32, rids [S] i32) | None
+):
+    """The stepping form of `insert_batch` (`graph/steps.py`): the
+    candidate walk's and the prunes' flags."""
     dev = new_vecs.device
     m = new_vecs.shape[0]
     r = config.max_degree
@@ -126,7 +159,7 @@ def insert_batch(
 
     # ---------------- phase 2: candidate generation ----------------
     if packed is None:
-        res = beam_search(
+        res = yield from beam_search_steps(
             state.vectors, state.sq_norms, state.adjacency, start_ids, stored_vecs,
             metric=metric, l_search=config.l_build, beam_width=config.beam_width,
             max_hops=mh_eff, pool_capacity=pool_capacity, record_pool=True,
@@ -146,7 +179,7 @@ def insert_batch(
             )
             search_start = torch.where(row_valid[:, None], search_start, -1)
         sdef, sdata = packed_scorer(packed, metric)
-        res = beam_search_scored(
+        res = yield from beam_search_scored_steps(
             sdef, sdata, state.adjacency, search_start, new_vecs,
             l_search=config.l_build, beam_width=config.beam_width,
             max_hops=mh_eff, pool_capacity=pool_capacity, record_pool=True,
@@ -185,7 +218,7 @@ def insert_batch(
     cand_ids = cand_ids[:, :c_cap]
 
     # the packed walk's distances are approximate: the prune recomputes them
-    out_ids, _, out_n = chunked_robust_prune(
+    out_ids, _, out_n = yield from chunked_robust_prune_steps(
         state.vectors, stored_vecs, cand_ids,
         None if packed is not None else cand_d[:, :c_cap], new_ids, config,
         degree=r,
@@ -257,7 +290,7 @@ def insert_batch(
     if pick.numel():
         t_l = t_u.long()
         pool_ids = torch.cat([state.adjacency[t_l], g_src], 1)  # [U, R_slack+K]
-        rp_ids, _, rp_n = chunked_robust_prune(
+        rp_ids, _, rp_n = yield from chunked_robust_prune_steps(
             state.vectors, state.vectors[t_l], pool_ids, None, t_u, config,
             degree=r,
         )

@@ -33,7 +33,8 @@ import numpy as np
 import torch
 
 from diskann_tpu_torch.graph import packed as packed_mod
-from diskann_tpu_torch.graph.build import chunked_robust_prune
+from diskann_tpu_torch.graph import steps
+from diskann_tpu_torch.graph.build import chunked_robust_prune_steps
 from diskann_tpu_torch.graph.config import GraphConfig
 from diskann_tpu_torch.graph.search import beam_search
 from diskann_tpu_torch.graph.state import GraphArrays
@@ -141,13 +142,20 @@ def patch_rows(state: GraphArrays, rows, config: GraphConfig, *,
     """Prune repair of ``rows`` (ids outside the table are skipped), in
     place: RobustPrune each row's live entries plus replacement candidates
     back to R."""
+    return steps.run(patch_rows_steps(**locals()))
+
+
+def patch_rows_steps(state: GraphArrays, rows, config: GraphConfig, *,
+                     max_dead: int = 4, repl_lookup=None, repl_table=None):
+    """The stepping form of `patch_rows` (`graph/steps.py`): the prune's
+    flags."""
     rows = _in_range(state, rows)
     if rows.numel() == 0:
         return state
     r = config.max_degree
     kept, repl = _kept_and_repl(state, rows, max_dead, repl_lookup, repl_table)
     pool_ids, p_vec, pool_d = _pool(state, rows, kept, repl, config)
-    new_ids, _, new_n = chunked_robust_prune(
+    new_ids, _, new_n = yield from chunked_robust_prune_steps(
         state.vectors, p_vec, pool_ids, pool_d, rows.to(torch.int32), config,
         degree=r,
     )

@@ -13,7 +13,9 @@ the first K eligible positions of every row, promotes the prefix-consistent
 subset (position i is promoted iff the positions promoted before it in the
 same step do not occlude it), then applies all promoted neighbours'
 occlusion to the whole pool with one batched product.  The loop checks for
-remaining eligible positions once per step.
+remaining eligible positions once per step: `robust_prune_steps` yields
+the flag (`graph/steps.py`), `robust_prune` answers it in the calling
+thread.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from diskann_tpu_torch.graph import steps
 from diskann_tpu_torch.graph.config import OCCLUDING_MASK, GraphConfig, PruneKind
 from diskann_tpu_torch.ops.distance import Metric, squared_norms
 from diskann_tpu_torch.ops.topk import SENTINEL, mask_duplicates_sorted, sort_with
@@ -51,12 +54,13 @@ def _set_distance(q, qsq, x, xsq, metric: Metric):
     return 1.0 - dots / denom
 
 
-def _occlude_scan(pool_d, pool_vecs, pool_sq, valid, *, degree: int,
-                  alpha_ladder: tuple, kind: PruneKind, metric: Metric,
-                  saturate: bool):
+def _occlude_scan_steps(pool_d, pool_vecs, pool_sq, valid, *, degree: int,
+                        alpha_ladder: tuple, kind: PruneKind, metric: Metric,
+                        saturate: bool):
     """pool_d [B, C] ascending (inf invalid), pool_vecs [B, C, d], pool_sq
-    [B, C], valid [B, C].  Returns (sel_pos [B, degree] pool positions in
-    promotion order, C = empty; found [B])."""
+    [B, C], valid [B, C].  Yields each step's "any position eligible" flag
+    and ends the rung on a False answer.  Returns (sel_pos [B, degree] pool
+    positions in promotion order, C = empty; found [B])."""
     b, c = pool_d.shape
     dev = pool_d.device
     occ = torch.where(valid, 0.0, _INF)
@@ -67,13 +71,16 @@ def _occlude_scan(pool_d, pool_vecs, pool_sq, valid, *, degree: int,
     pos = torch.arange(c, device=dev).expand(b, c)
     kk = max(min(16, degree, c), 1)
     k_iota = torch.arange(kk, device=dev)[None, :]
+    earlier = k_iota.T > k_iota                    # [Ki, Kj]: j < i
 
     for alpha in alpha_ladder:
-        alpha_f = torch.tensor(alpha, dtype=torch.float32, device=dev)
-        knock = torch.tensor(alpha + OCCLUDING_MASK, dtype=torch.float32, device=dev)
+        # filled on the device: a host scalar copied there would wait for
+        # the card's queue to drain
+        alpha_f = torch.full((), alpha, dtype=torch.float32, device=dev)
+        knock = torch.full((), alpha + OCCLUDING_MASK, dtype=torch.float32, device=dev)
         while True:
             eligible = (occ <= alpha_f) & ~selected & valid & (found[:, None] < degree)
-            if not bool(eligible.any()):
+            if not (yield eligible.any()):
                 break
             room = (degree - found).clamp_max(kk)
             # first K eligible positions per row, ascending (c = none)
@@ -84,20 +91,23 @@ def _occlude_scan(pool_d, pool_vecs, pool_sq, valid, *, degree: int,
             jsq = pool_sq.gather(1, safe_k)
             jpd = pool_d.gather(1, safe_k)
 
-            # prefix-consistent promotion among the K examined
+            # prefix-consistent promotion among the K examined: i is promoted
+            # iff it is live and no promoted j < i blocks it, where j blocks
+            # i when its occlusion factor on i exceeds the rung's alpha
+            # (TriangleInequality; a NaN factor blocks, as it fails <=) or
+            # knocks it out (Occluding: knock > alpha).  The whole [Kj, Ki]
+            # block is decided at once, so each i costs a few ops.
             dd = _set_distance(jvecs, jsq, jvecs, jsq, metric)   # [B, Kj, Ki]
-            promote = torch.zeros((b, kk), dtype=torch.bool, device=dev)
-            promote[:, 0] = k_live[:, 0]
+            if kind == PruneKind.TriangleInequality:
+                ratio = torch.where(dd == 0.0, _INF, jpd[:, None, :] / dd)
+                blocks = ~(ratio <= alpha_f)
+            else:
+                blocks = dd < alpha_f * jpd[:, None, :]
+            blocks = blocks.transpose(1, 2) & earlier      # [B, Ki, Kj], j < i
+            promote = k_live.clone()
             for i in range(1, kk):
-                dji = dd[:, :i, i]
-                prev = promote[:, :i]
-                if kind == PruneKind.TriangleInequality:
-                    ratio = torch.where(dji == 0.0, _INF, jpd[:, i:i + 1] / dji)
-                    occ_i = torch.where(prev, ratio, 0.0).amax(1).clamp_min(0.0)
-                else:
-                    hit_i = (prev & (dji < alpha_f * jpd[:, i:i + 1])).any(1)
-                    occ_i = torch.where(hit_i, knock, 0.0)
-                promote[:, i] = k_live[:, i] & (occ_i <= alpha_f)
+                col = promote[:, i]
+                col &= ~(promote & blocks[:, i]).any(1)
 
             # pool-wide occlusion from all promoted at once: [B, K, C]
             jk = _set_distance(jvecs, jsq, pool_vecs, pool_sq, metric)
@@ -144,6 +154,22 @@ def robust_prune(
     """Batched RobustPrune of B candidate pools: id dedup, self exclusion,
     sort by distance, occlusion scan.  Returns up to ``degree`` neighbours
     per row in promotion order."""
+    return steps.run(robust_prune_steps(**locals()))
+
+
+def robust_prune_steps(
+    p_vecs: torch.Tensor,                 # [B, d] points being pruned
+    cand_ids: torch.Tensor,               # [B, C] candidate ids (-1 invalid)
+    cand_dists: torch.Tensor | None,      # [B, C] d(p, candidate); None -> recompute
+    cand_vecs: torch.Tensor,              # [B, C, d] candidate vectors
+    self_ids: torch.Tensor,               # [B] id of each pruned point
+    config: GraphConfig,
+    *,
+    degree: int | None = None,
+    saturate: bool | None = None,
+):
+    """The stepping form of `robust_prune` (`graph/steps.py`): yields the
+    occlusion scan's flags; returns what `robust_prune` returns."""
     b, c = cand_ids.shape
     metric = config.metric
     if cand_dists is None:
@@ -174,7 +200,7 @@ def robust_prune(
     pool_sq = (squared_norms(pool_vecs) if metric.needs_norms
                else torch.zeros((b, c), device=pool_d.device))
 
-    sel_pos, found = _occlude_scan(
+    sel_pos, found = yield from _occlude_scan_steps(
         pool_d, pool_vecs, pool_sq, pool_valid,
         degree=degree, alpha_ladder=config.alpha_ladder(),
         kind=config.prune_kind, metric=metric, saturate=saturate,

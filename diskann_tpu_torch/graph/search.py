@@ -5,7 +5,9 @@ Keep a distance-sorted best-list of size L per query; each hop expands the
 ``beam_width`` closest unexpanded entries of every query in the batch at
 once, scores their neighbours, and merges; stop when no query has an
 unexpanded entry or after ``max_hops`` hops.  The hop loop is a Python loop
-that checks convergence once per hop.
+that checks convergence once per hop: `beam_search_scored_steps` yields
+the flag (`graph/steps.py`), `beam_search_scored` answers it in the
+calling thread.
 
 Three dedup modes:
 
@@ -41,6 +43,7 @@ from typing import NamedTuple
 
 import torch
 
+from diskann_tpu_torch.graph import steps
 from diskann_tpu_torch.graph.scorers import ScorerDef, full_precision_scorer
 from diskann_tpu_torch.ops.distance import Metric
 from diskann_tpu_torch.ops.topk import (
@@ -168,6 +171,40 @@ def beam_search_scored(
     """Batched greedy beam search with a pluggable scorer.  Returns a
     `SearchResult`, and with ``return_state`` also the final
     `ResumeState`."""
+    return steps.run(beam_search_scored_steps(**locals()))
+
+
+def beam_search_scored_steps(
+    scorer_def: ScorerDef,
+    scorer_data,
+    adjacency: torch.Tensor,      # [N, R] i32, -1 padded
+    start_ids: torch.Tensor,      # [S] or [B, S] i32
+    queries: torch.Tensor,        # [B, d]
+    *,
+    l_search: int,
+    beam_width: int = 1,
+    max_hops: int = 512,
+    history_capacity: int = 0,
+    pool_capacity: int = 1,
+    record_pool: bool = False,
+    dedup: str = "ring",
+    accept_fn=None,               # (accept_data, ids, valid) -> bool mask
+    accept_data=None,
+    filter_beta: float = 1.0,
+    filter_mode: str = "inline",  # "inline" | "multihop"
+    query_valid: torch.Tensor | None = None,   # [B] bool — padded rows
+    expand_r: int | None = None,  # scorer.expand slots per node if != R
+    resume_state: ResumeState | None = None,
+    return_state: bool = False,
+    reserve: int = 0,
+    reseed_ring: bool = False,
+    diverse_attrs: torch.Tensor | None = None,   # [cap] i32 attribute per point
+    diverse_l: int = 0,           # per-attribute quota in the navigation list
+    merge_trunc: bool = False,    # cut candidates to the list width
+):
+    """The stepping form of `beam_search_scored` (`graph/steps.py`): yields
+    each hop's "any entry left unexpanded" flag and ends the walk on a
+    False answer; returns what `beam_search_scored` returns."""
     if dedup not in ("ring", "list", "merge"):
         raise ValueError(f"unknown dedup {dedup!r}")
     if filter_mode not in ("inline", "multihop"):
@@ -302,7 +339,7 @@ def beam_search_scored(
         unexp = (best_e == 0) & (best_i >= 0)
         if reserve:
             unexp &= active
-        if not bool(unexp.any()):
+        if not (yield unexp.any()):
             break
         # ---- 1. frontier: the W closest unexpanded entries per row ----
         rank = unexp.cumsum(1) - 1
@@ -453,10 +490,19 @@ def beam_search(vectors, vec_sq_norms, adjacency, start_ids, queries, *,
                 pool_capacity: int = 1, record_pool: bool = False,
                 dedup: str = "ring", query_valid=None) -> SearchResult:
     """Full-precision beam search (the in-memory configuration)."""
+    return steps.run(beam_search_steps(**locals()))
+
+
+def beam_search_steps(vectors, vec_sq_norms, adjacency, start_ids, queries, *,
+                      metric: Metric, l_search: int, beam_width: int = 1,
+                      max_hops: int = 512, history_capacity: int = 0,
+                      pool_capacity: int = 1, record_pool: bool = False,
+                      dedup: str = "ring", query_valid=None):
+    """The stepping form of `beam_search` (`graph/steps.py`)."""
     sdef, sdata = full_precision_scorer(vectors, vec_sq_norms, metric)
-    return beam_search_scored(
+    return (yield from beam_search_scored_steps(
         sdef, sdata, adjacency, start_ids, queries,
         l_search=l_search, beam_width=beam_width, max_hops=max_hops,
         history_capacity=history_capacity, pool_capacity=pool_capacity,
         record_pool=record_pool, dedup=dedup, query_valid=query_valid,
-    )
+    ))

@@ -20,8 +20,8 @@ from diskann_tpu_torch.graph.packed import code_wrows, id_wrows, n_wrows
 from diskann_tpu_torch.ops.kernels import native
 
 #: Kernel launches so far in this process (the wrapper adds one per launch),
-#: in all and per CUDA device index; host workers of several cards launch
-#: at once, so the counts move under a lock.
+#: in all and per CUDA device index; the counts move under a lock, since a
+#: server's threads may launch at once.
 launches = 0
 launches_by_device: dict[int, int] = {}
 _count_lock = threading.Lock()

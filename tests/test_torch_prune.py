@@ -5,6 +5,8 @@ same candidate distances the promoted ids and counts are identical.  On
 integer-valued vectors every float32 product is exact, so the case that
 recomputes distances (``cand_dists=None``) is identical too; the scalar
 oracle of `tests/reference_impl.py` ties both to DiskANN's occlude_list.
+The stepping forms (`robust_prune_steps`, `chunked_robust_prune_steps`),
+driven by hand, give bitwise the plain calls' results.
 """
 
 import jax.numpy as jnp
@@ -17,9 +19,9 @@ from diskann_tpu.graph.config import GraphConfig as JConfig
 from diskann_tpu.graph.prune import robust_prune as j_prune
 from diskann_tpu.ops.distance import Metric as JMetric
 from diskann_tpu.ops.distance import distance_to_set as j_dist
-from diskann_tpu_torch.graph.build import chunked_robust_prune
+from diskann_tpu_torch.graph.build import chunked_robust_prune, chunked_robust_prune_steps
 from diskann_tpu_torch.graph.config import GraphConfig
-from diskann_tpu_torch.graph.prune import robust_prune
+from diskann_tpu_torch.graph.prune import robust_prune, robust_prune_steps
 from diskann_tpu_torch.ops.distance import Metric
 from reference_impl import occlude_list
 from torch_port_helpers import n, t
@@ -98,3 +100,40 @@ def test_chunked_robust_prune_matches_jax():
                                degree=8, chunk=64)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(n(g), np.asarray(w))
+
+
+def _by_hand(steps):
+    """(result, flags yielded) of a stepping form, each flag answered with
+    its value."""
+    yields, reply = 0, None
+    while True:
+        try:
+            flag = steps.send(reply)
+        except StopIteration as stop:
+            return stop.value, yields
+        yields += 1
+        reply = bool(flag)
+
+
+@pytest.mark.parametrize("metric,degree,alpha,saturate", [
+    ("l2", 8, 1.2, False),
+    ("l2", 12, 1.2, True),
+    ("ip", 8, 1.2, False),
+    ("cosine", 16, 1.5, False),
+])
+def test_stepping_prune_matches_the_plain_call(metric, degree, alpha, saturate):
+    vecs, p_vecs, ids, self_ids = _pools(degree + int(alpha * 10))
+    _, tcfg = _configs(metric, degree, alpha, saturate)
+    cvec = t(vecs[np.clip(ids, 0, len(vecs) - 1)])
+    args = (t(p_vecs), t(ids), None, cvec, t(self_ids), tcfg)
+    got, yields = _by_hand(robust_prune_steps(*args))
+    want = robust_prune(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # each rung of the alpha ladder ends on a False flag
+    assert yields > len(tcfg.alpha_ladder())
+    got, _ = _by_hand(chunked_robust_prune_steps(t(vecs), t(p_vecs), t(ids), None,
+                                                 t(self_ids), tcfg, degree=degree, chunk=7))
+    for g, w in zip(got, chunked_robust_prune(t(vecs), t(p_vecs), t(ids), None,
+                                              t(self_ids), tcfg, degree=degree, chunk=7)):
+        assert torch.equal(g, w)

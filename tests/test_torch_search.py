@@ -9,7 +9,9 @@ build pool and the filtered walks' matched lists are identical, and
 distances agree within rtol 1e-6.  The filtered cases carry one label set
 (30% "hot") to both packages: the inline walk of the packed filtered
 search, multihop over the ring, and a pass resumed at a wider window
-after `grow_resume_state` with ``reseed_ring``.
+after `grow_resume_state` with ``reseed_ring``.  The stepping forms
+(`beam_search_scored_steps`, `beam_search_steps`), driven by hand, give
+bitwise the plain calls' results, and a False answer ends the walk there.
 """
 
 import jax.numpy as jnp
@@ -29,7 +31,8 @@ from diskann_tpu_torch.convert import graph_index_from_arrays
 from diskann_tpu_torch.filters import LabelSet, compile_accept, parse_predicate
 from diskann_tpu_torch.graph.scorers import ScorerDef, packed_scorer
 from diskann_tpu_torch.graph.search import (
-    beam_search_scored, grow_resume_state, search_geometry,
+    SearchResult, beam_search, beam_search_scored, beam_search_scored_steps,
+    beam_search_steps, grow_resume_state, search_geometry,
 )
 from diskann_tpu_torch.ops.distance import Metric
 from torch_port_helpers import jax_index_arrays, n, t
@@ -217,3 +220,54 @@ def test_search_geometry_matches_jax():
                    dict(l_search=100, reserve=8, beam_width=1, r=20, s=1,
                         history_capacity=512)):
             assert search_geometry(dedup=dedup, **kw) == j_geom(dedup=dedup, **kw)
+
+
+def _drive_by_hand(steps, answer=bool):
+    """(result, flags yielded): ``steps`` driven to its end, each yielded
+    flag answered with ``answer(flag)``."""
+    yields, reply = 0, None
+    while True:
+        try:
+            flag = steps.send(reply)
+        except StopIteration as stop:
+            return stop.value, yields
+        yields += 1
+        reply = answer(flag)
+
+
+def _assert_bitwise(got, want):
+    for f in SearchResult._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("dedup,kw", [
+    ("list", {}),
+    ("merge", dict(record_pool=True, pool_capacity=64)),
+    ("ring", dict(history_capacity=256)),
+])
+def test_stepping_form_matches_the_plain_call(graphs, dedup, kw):
+    _, tidx, q = graphs
+    tdef, tdata = packed_scorer(tidx.packed, Metric.L2)
+    args = (tdef, tdata, tidx.state.adjacency, t(np.array([0, 5], np.int32)), t(q))
+    kw = dict(kw, l_search=24, beam_width=4, max_hops=512, dedup=dedup,
+              expand_r=tidx.packed.r_pack)
+    got, yields = _drive_by_hand(beam_search_scored_steps(*args, **kw))
+    _assert_bitwise(got, beam_search_scored(*args, **kw))
+    assert 2 < yields <= 512        # one flag a hop, the last one False
+    # a False answer ends the walk where it stands: the start points alone
+    got, yields = _drive_by_hand(beam_search_scored_steps(*args, **kw),
+                                 answer=lambda flag: False)
+    assert yields == 1
+    _assert_bitwise(got, beam_search_scored(*args, **(kw | {"max_hops": 0})))
+
+
+@pytest.mark.parametrize("max_hops", [512, 3])
+def test_full_precision_stepping_form_matches_the_plain_call(graphs, max_hops):
+    _, tidx, q = graphs
+    st = tidx.state
+    args = (st.vectors, st.sq_norms, st.adjacency, t(np.array([0, 5], np.int32)), t(q))
+    kw = dict(metric=Metric.L2, l_search=32, beam_width=2, max_hops=max_hops,
+              record_pool=True, pool_capacity=64)
+    got, yields = _drive_by_hand(beam_search_steps(*args, **kw))
+    _assert_bitwise(got, beam_search(*args, **kw))
+    assert yields == max_hops if max_hops == 3 else 3 < yields < max_hops

@@ -19,9 +19,11 @@ package's (one shard per device of the 8-device CPU mesh that
 - The multi-device form (``shards`` a sequence of devices, one per shard)
   against the int form on the same data: build, full / packed / filtered /
   range search, delete, grow and save -> load give bitwise-equal ids,
-  distances and cmps and byte-equal records, with one host worker (every
-  shard on "cpu") and with two ("cpu" and "cpu:0" are distinct devices to
-  the fan-out, so two workers run the shards at once).  The carried JAX
+  distances and cmps and byte-equal records, every shard on "cpu" and on
+  two devices ("cpu" and "cpu:0" are distinct to the fan-out, which steps
+  the shards of both in lockstep from the calling thread).  The lockstep
+  driver itself: shard order, rounds, answers, the first failure raised
+  and every generator closed.  The carried JAX
   index crosses into an 8-device list and keeps JAX's ids.  On a host
   without CUDA cards every device here is the CPU, so placement on
   several cards is held only by `chip_smoke.py`'s [sharded] phase.
@@ -521,27 +523,43 @@ def test_sharded_flat_on_a_device_list_keeps_flat_ids(placement, rng):
     assert torch.equal(i, want[1]) and torch.equal(d, want[0])
 
 
-def test_fan_out_keeps_shard_order_and_raises():
-    import threading
-    import time
-
+def test_lockstep_fan_out_keeps_shard_order_raises_and_closes():
     devices = [torch.device(d) for d in ("cpu", "cpu:0") * 3]
-    threads = {}
+    order = []
 
-    def slow_first(s):
-        time.sleep(0.05 * (len(devices) - s))      # later shards finish first
-        threads[s] = threading.get_ident()
-        return s * 10
+    def stepping(s):
+        def steps():
+            for k in range(s + 1):                  # shard s takes s + 1 steps
+                order.append((k, s))
+                answer = yield torch.tensor(k < s)  # the flag: more steps to come
+                assert answer is (k < s)
+            return s * 10
+        return steps()
 
-    assert _fan_out(devices, slow_first) == [0, 10, 20, 30, 40, 50]
-    # one worker per device, each running its shards in order
-    assert len({threads[s] for s in (0, 2, 4)}) == 1
-    assert threads[0] != threads[1]
+    assert _fan_out(devices, stepping) == [0, 10, 20, 30, 40, 50]
+    # round k advances every live shard, in shard order, before round k + 1
+    assert order == sorted(order) and len(order) == 21
+    # a shard's function may return its result directly
+    assert _fan_out(devices, lambda s: stepping(s) if s % 2 else -s) == [
+        0, 10, -2, 30, -4, 50]
+
+    closed, steps_taken = [], []
 
     def fails_on_three(s):
-        if s == 3:
-            raise RuntimeError("shard 3 failed")
-        return s
+        def steps():
+            try:
+                for k in range(2):
+                    if s == 3 and k == 1:
+                        raise RuntimeError("shard 3 failed")
+                    steps_taken.append(s)
+                    yield torch.tensor(True)
+                return s
+            finally:
+                closed.append(s)
+        return steps()
 
     with pytest.raises(RuntimeError, match="shard 3 failed"):
         _fan_out(devices, fails_on_three)
+    # every generator was closed, and no shard after 3 took another step
+    assert sorted(closed) == list(range(6))
+    assert steps_taken == [0, 1, 2, 3, 4, 5, 0, 1, 2]
