@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA card.
 
-    python3 chip_smoke.py [--n 1000000] [--only sharded|sharded-trace|sharded6m]
+    python3 chip_smoke.py [--n 1000000] [--only kernels|sharded|sharded-trace|sharded6m]
 
 Phases, each printing one line:
 
 1. device: card name, power limit, torch and CUDA versions, TF32 flags;
 2. kernel build: one nvcc per source of `diskann_tpu_torch/ops/kernels/csrc/`,
-   all started together, then one link;
+   all started together, then one link; ptxas's report (registers, shared
+   memory, spills of every kernel instantiation) is printed;
 3. K1 `fatrow_expand` against its plain version, bitwise, at (r_pack, dp) =
    (16, 64), (32, 32), (88, 64), (84, 128) and at the other packed widths
    (16, 4), (16, 8), (84, 256), (40, 512), with repeated and out-of-range
@@ -39,7 +40,12 @@ Phases, each printing one line:
    bitwise against its plain version: K1 on the dp=64 and dp=128 tables,
    K2 on the dp=128 table (both past 2^31 words at 1M rows); each beside
    its least time on the card (bytes over 3.35 TB/s) and, for K2, the one
-   library call that does the same (`index_copy_`);
+   library call that does the same (`index_copy_`).  Every time is the
+   device's alone: the timed calls queue behind a `torch.cuda._sleep`
+   longer than their enqueue, so the events bracket back-to-back device
+   work; the host's time per wrapper call is printed on its own line, and
+   the main path's K1 launches at each width times that width's gap to its
+   bound;
 9. stream: the JAX package's 1M streaming setting (`BENCH_STREAM1M_r05`):
    a packed index over 1M of 1.3M clustered points (capacity 1,040,000),
    then 6 cycles of delete 50,000 (scan, fill,
@@ -152,7 +158,7 @@ prefix of the 1M index); the flat route must reach recall@10
 implies, and after 1% of the 768-d index is deleted the flat route must
 return no deleted id.  Phase 8 also times K1 at the other packed widths
 (100 launches each; the merged build's rp=64 / dp=32 on a table of one
-merged shard's rows).
+merged shard's rows; rp=16 also at 262,144 slots, a bound >= 0.1 ms).
 
 Phase 4 also trains every quantizer on the CPU copy of its small index,
 carries the trained state to the card and holds each quantized mode's
@@ -173,8 +179,9 @@ the rerank.
 On a host with several cards, phases 3 and 4's bitwise kernel checks run
 on every card.  Every timed span drains every card on both ends.
 
-`--only sharded` runs phases 1-3, the kernel checks on every card and
-[sharded] alone; `--only sharded-trace` builds phase 19's index on card 0,
+`--only kernels` runs phases 1-3, the kernel checks on every card and
+phase 8's kernel times alone; `--only sharded` runs phases 1-3, the
+kernel checks on every card and [sharded] alone; `--only sharded-trace` builds phase 19's index on card 0,
 traces one insert call and one packed search there, loads it onto every
 card and traces both again; `--only sharded6m` needs four cards (it
 raises on fewer): 6M x 128 points of the main path's generator at its
@@ -261,6 +268,8 @@ R04_DEEP20M = {(40, 16): 0.9739, (80, 16): 0.9922, (80, 64): 0.9924, (160, 16): 
 K1_MERGED = (64, 32)
 K1_WIDTHS = ((16, 4), (16, 8), (16, 16), (84, 256), (40, 512), K1_MERGED)
 K1_WIDTH_REPS = 100
+# rp=16 is also timed at this many slots: a bound of >= 0.1 ms
+K1_WIDE_SLOTS = 1 << 18
 # mode="auto": the flat route against the graph walk at a batch of
 # AUTO_BATCH queries (best of 3) and AUTO_SINGLES single-query calls;
 # the flat route's recall@10 bar; the bracket point below the 768-d shape
@@ -2137,18 +2146,69 @@ def run_service(device, *, n: int = SVC_N, adds: int = SVC_WIRE_ADDS, nq: int = 
 
 
 
-def time_ms(torch, fn, reps: int = 20) -> float:
-    """Mean milliseconds per call on the card, after warm-up."""
+_SLEEP_RATE: list = []
+
+
+def sleep_rate(torch) -> float:
+    """Cycles of `torch.cuda._sleep` per device millisecond on the current
+    card (its SM clock), timed once per process."""
+    if not _SLEEP_RATE:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        cycles = 20_000_000
+        torch.cuda.synchronize()
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        torch.cuda.synchronize()
+        _SLEEP_RATE.append(cycles / start.elapsed_time(end))
+    return _SLEEP_RATE[0]
+
+
+def time_ms(torch, fn, reps: int = 20, tries: int = 3) -> dict:
+    """Device milliseconds per call, with the host kept out of the events'
+    window: the timed calls are queued behind a `torch.cuda._sleep` twice
+    as long as their enqueue (plus 1 ms), so the two events bracket
+    back-to-back device work only.  A window whose enqueue outlasted its
+    sleep (the host was held up) is taken again with a sleep twice as long,
+    up to ``tries`` windows.  Returns {"ms": device ms per call, "host_ms":
+    the host's ms per call (the enqueue alone, timed on its own beforehand),
+    "sleep_ms": the last sleep's length, "covered": whether its enqueue
+    ended inside it}; a call that synchronises (a plain version's boolean
+    index) is never covered, and its "ms" then holds host time too."""
     for _ in range(3):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
-    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    sleep_ms = 2.0 * host_ms * reps + 1.0
+    for _ in range(tries):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(sleep_ms * sleep_rate(torch)))
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        out = {"ms": start.elapsed_time(end) / reps, "host_ms": host_ms,
+               "sleep_ms": sleep_ms, "covered": enqueue_ms < sleep_ms}
+        if out["covered"]:
+            break
+        sleep_ms *= 2
+    return out
+
+
+def timing_note(t: dict, reps: int) -> str:
+    """How one `time_ms` window was taken, for the log."""
+    return (f"{reps} reps behind a {t['sleep_ms']:.2f} ms sleep "
+            f"({'covered' if t['covered'] else 'NOT covered: host in the window'}), "
+            f"host {t['host_ms']:.4f} ms a call")
 
 
 def check_k1_full(torch, rows, beam, qiw, rp: int, dp: int, n: int) -> int:
@@ -2224,21 +2284,47 @@ def k1_bound(torch, beam, rp: int, dp: int, n: int) -> dict:
             "bound_bytes": moved}
 
 
+def k1_row(torch, k1mod, rows, beam, qiw, rp: int, dp: int, nodes: int, reps: int,
+           what: str) -> dict:
+    """Time K1 and its plain version on one table (`time_ms`), log the
+    line with its bound and return the row."""
+    bw = beam.shape[0]
+    t = time_ms(torch, lambda: k1mod.fatrow_expand(rows, beam, qiw, rp=rp, dp=dp), reps)
+    p = time_ms(torch, lambda: k1mod.fatrow_expand_plain(rows, beam, qiw, rp=rp, dp=dp),
+                reps, tries=1)
+    b = k1_bound(torch, beam, rp, dp, nodes)
+    plan = getattr(k1mod, "plan", None)
+    how = ("" if plan is None else
+           f", {plan(rp, dp, bw, n_sms=k1mod.sm_count(rows.device.index))}")
+    log(f"[time] fatrow_expand rp={rp} dp={dp} bw={bw} {what} "
+        f"{rows.numel() * 4 / 1e9:.2f} GB: kernel {t['ms']:.4f} ms "
+        f"({b['bound_ms'] / t['ms']:.1%} of its bound), plain {p['ms']:.3f} ms, "
+        f"bound {b['bound_ms']:.4f} ms ({b['bound_bytes'] / 1e6:.1f} MB, by "
+        f"{b['bound_by']}); {timing_note(t, reps)}{how}")
+    return {"ms": t["ms"], "plain_ms": p["ms"], "host_ms": t["host_ms"],
+            "share": b["bound_ms"] / t["ms"], **b}
+
+
 def time_kernels(torch, device, n: int) -> dict:
     """Kernel vs plain at the main path's shapes, on random tables of the
-    main path's size: K1 at BW = 8192 x 4 slots on the dp=64 build table
-    and the dp=128 search table (past 2^31 words at 1M rows); K2 at one
-    build commit's refresh (8192 rows x 2 blocks of the dp=64 table).  On
-    the same tables each kernel's output is held bitwise against its plain
-    version's: K1 at both geometries, K2 on the dp=128 table."""
+    main path's size, each timed on the device alone (`time_ms`): K1 at
+    BW = 8192 x 4 slots on the dp=64 build table and the dp=128 search
+    table (past 2^31 words at 1M rows); K2 at one build commit's refresh
+    (8192 rows x 2 blocks of the dp=64 table) beside `index_copy_`.  Then
+    K1 at the other packed widths, and at rp=16 also at K1_WIDE_SLOTS
+    slots, where the bound is long enough (>= 0.1 ms) that launch latency
+    does not set the share.  On the same tables each kernel's output is
+    held bitwise against its plain version's: K1 at every geometry, K2 on
+    the dp=128 table."""
     from diskann_tpu_torch.graph.packed import n_wrows
+    from diskann_tpu_torch.ops.kernels import fatrow_expand as k1mod
     from diskann_tpu_torch.ops.kernels.block_patch import block_patch, block_patch_plain
-    from diskann_tpu_torch.ops.kernels.fatrow_expand import (
-        fatrow_expand, fatrow_expand_plain,
-    )
 
     g = torch.Generator(device=device).manual_seed(5)
-    res = {"k1_err": 0, "k1_dps": set()}
+    res = {"k1_err": 0, "k1_dps": set(), "sleep_cycles_per_ms": sleep_rate(torch)}
+    log(f"[time] timing: the timed calls queue behind torch.cuda._sleep "
+        f"({res['sleep_cycles_per_ms']:.0f} cycles a device ms), so the events "
+        f"bracket device work only")
     bw = NQ * 4
     for rp, dp in ((88, 64), (84, 128)):
         nwr = n_wrows(rp, dp)
@@ -2251,17 +2337,8 @@ def time_kernels(torch, device, n: int) -> dict:
                             dtype=torch.int8)
         res["k1_err"] = max(res["k1_err"], check_k1_full(torch, rows, beam, qiw, rp, dp, n))
         res["k1_dps"].add(dp)
-        ms = time_ms(torch, lambda: fatrow_expand(rows, beam, qiw, rp=rp, dp=dp))
-        plain = time_ms(torch, lambda: fatrow_expand_plain(rows, beam, qiw, rp=rp, dp=dp))
-        read = bw * (2 * -(-rp // 128) + -(-rp * dp // 512)) * 512
-        res[f"k1_rp{rp}_dp{dp}"] = {"ms": ms, "plain_ms": plain,
-                                     "gb_per_s": read / ms / 1e6,
-                                     **k1_bound(torch, beam, rp, dp, n)}
-        b = res[f"k1_rp{rp}_dp{dp}"]
-        log(f"[time] fatrow_expand rp={rp} dp={dp} bw={bw} table {rows.numel() * 4 / 1e9:.2f} GB: "
-            f"kernel {ms:.3f} ms ({read / ms / 1e6:.0f} GB/s of rows read), "
-            f"plain {plain:.3f} ms, bound {b['bound_ms']:.3f} ms "
-            f"({b['bound_bytes'] / 1e6:.1f} MB at 3.35 TB/s, by {b['bound_by']})")
+        res[f"k1_rp{rp}_dp{dp}"] = k1_row(torch, k1mod, rows, beam, qiw, rp, dp, n, 20,
+                                          f"table {n} nodes")
         if dp == 64:
             n_blocks = rows.shape[0] // 8
             nb = 8192 * (nwr // 8)
@@ -2269,22 +2346,26 @@ def time_kernels(torch, device, n: int) -> dict:
             idx = idx.to(torch.int32)
             vals = torch.empty((nb * 8, 128), dtype=torch.int32, device=device)
             vals.random_(generator=g)
-            ms = time_ms(torch, lambda: block_patch(rows, idx, vals))
-            plain = time_ms(torch, lambda: block_patch_plain(rows, idx, vals))
+            t = time_ms(torch, lambda: block_patch(rows, idx, vals))
+            p = time_ms(torch, lambda: block_patch_plain(rows, idx, vals), tries=1)
             # the one library call that computes the same function
             ridx = (idx.long()[:, None] * 8
                     + torch.arange(8, device=device)[None, :]).reshape(-1)
             lib = time_ms(torch, lambda: rows.index_copy_(0, ridx, vals))
             moved = 2 * nb * 8 * 128 * 4 + nb * 4
-            res["k2_int32"] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
-                               "patches": nb, "gb_per_s": 2 * nb * 4096 / ms / 1e6,
+            res["k2_int32"] = {"ms": t["ms"], "plain_ms": p["ms"], "library_ms": lib["ms"],
+                               "host_ms": t["host_ms"], "library_host_ms": lib["host_ms"],
+                               "patches": nb, "gb_per_s": 2 * nb * 4096 / t["ms"] / 1e6,
                                "bound_ms": moved / HBM_BYTES_PER_MS,
                                "bound_by": "bytes"}
+            k2t = res["k2_int32"]
+            k2t["share"] = k2t["bound_ms"] / t["ms"]
             log(f"[time] block_patch int32 patches={nb} table "
-                f"{rows.numel() * 4 / 1e9:.2f} GB: kernel {ms:.3f} ms "
-                f"({2 * nb * 4096 / ms / 1e6:.0f} GB/s moved), plain {plain:.3f} ms, "
-                f"index_copy_ {lib:.3f} ms, bound {res['k2_int32']['bound_ms']:.3f} ms "
-                f"({moved / 1e6:.1f} MB at 3.35 TB/s)")
+                f"{rows.numel() * 4 / 1e9:.2f} GB: kernel {t['ms']:.4f} ms "
+                f"({k2t['share']:.1%} of its bound), plain {p['ms']:.3f} ms, "
+                f"index_copy_ {lib['ms']:.4f} ms (host {lib['host_ms']:.4f} ms a call), "
+                f"bound {k2t['bound_ms']:.4f} ms ({moved / 1e6:.1f} MB at 3.35 TB/s); "
+                f"{timing_note(t, 20)}")
             del idx, vals, ridx
         else:
             res["k2_err"] = check_k2_full(torch, rows, n * nwr // 8, g)
@@ -2296,23 +2377,24 @@ def time_kernels(torch, device, n: int) -> dict:
         nwr = n_wrows(rp, dp)
         rows = torch.empty(((nodes + 1) * nwr, 128), dtype=torch.int32, device=device)
         rows.random_(generator=g)
-        beam = torch.randint(0, nodes, (bw,), generator=g, device=device, dtype=torch.int32)
-        beam[:3] = torch.tensor([nodes - 1, nodes + 5, -3], dtype=torch.int32)
-        qiw = torch.randint(-127, 128, (bw, dp), generator=g, device=device, dtype=torch.int8)
-        res["k1_err"] = max(res["k1_err"], check_k1_full(torch, rows, beam, qiw, rp, dp, nodes))
-        res["k1_dps"].add(dp)
-        ms = time_ms(torch, lambda: fatrow_expand(rows, beam, qiw, rp=rp, dp=dp),
-                     K1_WIDTH_REPS)
-        plain = time_ms(torch, lambda: fatrow_expand_plain(rows, beam, qiw, rp=rp, dp=dp),
-                        K1_WIDTH_REPS)
-        b = {"ms": ms, "plain_ms": plain, **k1_bound(torch, beam, rp, dp, nodes)}
-        res[f"k1_rp{rp}_dp{dp}"] = b
-        log(f"[time] fatrow_expand rp={rp} dp={dp} bw={bw} table {nodes} nodes "
-            f"{rows.numel() * 4 / 1e9:.2f} GB, {K1_WIDTH_REPS} reps: kernel {ms:.4f} ms, "
-            f"plain {plain:.3f} ms, "
-            f"bound {b['bound_ms']:.3f} ms ({b['bound_bytes'] / 1e6:.1f} MB, by {b['bound_by']})")
-        del rows, beam, qiw
+        for slots in (bw, K1_WIDE_SLOTS) if rp == 16 else (bw,):
+            beam = torch.randint(0, nodes, (slots,), generator=g, device=device,
+                                 dtype=torch.int32)
+            beam[:3] = torch.tensor([nodes - 1, nodes + 5, -3], dtype=torch.int32)
+            qiw = torch.randint(-127, 128, (slots, dp), generator=g, device=device,
+                                dtype=torch.int8)
+            res["k1_err"] = max(res["k1_err"],
+                                check_k1_full(torch, rows, beam, qiw, rp, dp, nodes))
+            res["k1_dps"].add(dp)
+            key = f"k1_rp{rp}_dp{dp}" + ("" if slots == bw else f"_bw{slots}")
+            res[key] = k1_row(torch, k1mod, rows, beam, qiw, rp, dp, nodes, K1_WIDTH_REPS,
+                              f"table {nodes} nodes")
+            del beam, qiw
+        del rows
         torch.cuda.empty_cache()
+    host = {k: round(v["host_ms"], 4) for k, v in res.items()
+            if isinstance(v, dict) and "host_ms" in v}
+    log(f"[time] host ms per wrapper call (the enqueue alone, no sync): {json.dumps(host)}")
     return res
 
 
@@ -3343,10 +3425,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
                     help="database size of the main path (default 1,000,000)")
-    ap.add_argument("--only", choices=["sharded", "sharded-trace", "sharded6m"],
+    ap.add_argument("--only", choices=["kernels", "sharded", "sharded-trace", "sharded6m"],
                     help="after the build and the kernel checks, run only this phase "
-                         "and print its summary; no result line (sharded6m needs four "
-                         "cards)")
+                         "and print its summary; no result line (kernels: the kernel "
+                         "times of phase 8; sharded6m needs four cards)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3377,6 +3459,8 @@ def main(argv=None) -> int:
     native.library()
     log(f"[build] nvcc {' '.join(native.NVCC_FLAGS)} -> {lib.name}: "
         f"{time.time() - t0:.1f}s")
+    for line in native.ptxas_report().splitlines():
+        log(f"[build] {line.strip()}")
 
     k1_err, k1_dps = check_fatrow_expand(torch, device)
     k2_err = check_block_patch(torch, device)
@@ -3387,6 +3471,10 @@ def main(argv=None) -> int:
         check_fatrow_expand(torch, torch.device("cuda", c))
         check_block_patch(torch, torch.device("cuda", c))
         torch.cuda.empty_cache()
+    if args.only == "kernels":
+        times = time_kernels(torch, device, args.n)
+        log("[summary] " + json.dumps({k: v for k, v in times.items() if k != "k1_dps"}))
+        return 0
     if args.only == "sharded":
         return only_sharded(torch, device, args.n, k1, k2)
     if args.only == "sharded-trace":
@@ -3403,10 +3491,13 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats(device)
     k1.launches = 0
     k2.launches = 0
+    k1.launches_by_dp.clear()
     main_out, idx, qd, gt = run_main_path(args.n, device)
     launches = {"fatrow_expand": k1.launches, "block_patch": k2.launches}
+    k1_main_by_dp = dict(k1.launches_by_dp)
     peak = torch.cuda.max_memory_allocated(device)
-    log(f"[main] kernel launches on the main path: {launches}; "
+    log(f"[main] kernel launches on the main path: {launches}, K1 by dp "
+        f"{k1_main_by_dp} (dp=64 the build, dp=128 the search); "
         f"max_memory_allocated {peak / 2**30:.2f} GiB")
     if min(launches.values()) == 0:
         raise RuntimeError(f"a kernel of the main path never launched: {launches}")
@@ -3521,6 +3612,16 @@ def main(argv=None) -> int:
         log(f"[walls] seconds per phase: {json.dumps(walls)}; total {sum(walls.values()):.1f}")
 
         k1t, k2t = times["k1_rp84_dp128"], times["k2_int32"]
+        # where K1 loses time: its launches at a width times its gap to the bound
+        lost = {}
+        for what, n_launch, key in (
+                ("main build dp=64", k1_main_by_dp.get(64, 0), "k1_rp88_dp64"),
+                ("main search dp=128", k1_main_by_dp.get(128, 0), "k1_rp84_dp128"),
+                ("merged build dp=32", phase_launches["merged_build"]["fatrow_expand"],
+                 "k1_rp64_dp32")):
+            gap = times[key]["ms"] - times[key]["bound_ms"]
+            lost[what] = {"launches": n_launch, "gap_ms": gap, "lost_ms": n_launch * gap}
+        log(f"[time] K1 launches x (kernel - bound) per width: {json.dumps(lost)}")
         kernels = [
             {"name": "fatrow_expand", "route": "cuda", "source": K1_SOURCE,
              "replaces": K1_REPLACES, "launches": launches["fatrow_expand"],
@@ -3532,10 +3633,15 @@ def main(argv=None) -> int:
              "bound_ms": k1t["bound_ms"], "bound_by": k1t["bound_by"],
              "library_ms": None,
              "shape": "rp=84 dp=128 bw=32768",
+             "main_launches_by_dp": {str(k): v for k, v in sorted(k1_main_by_dp.items())},
+             "host_ms": k1t["host_ms"],
              # the dps whose bitwise checks passed in this run
              "dps_checked": sorted(k1_dps | times["k1_dps"]),
              **{f"{key}_rp{rp}_dp{dp}": times[f"k1_rp{rp}_dp{dp}"][key]
-                for rp, dp in ((88, 64),) + K1_WIDTHS for key in ("ms", "plain_ms", "bound_ms")}},
+                for rp, dp in ((88, 64),) + K1_WIDTHS for key in ("ms", "plain_ms", "bound_ms")},
+             **{f"{key}_rp16_dp{dp}_bw{K1_WIDE_SLOTS}":
+                times[f"k1_rp16_dp{dp}_bw{K1_WIDE_SLOTS}"][key]
+                for dp in (4, 8, 16) for key in ("ms", "plain_ms", "bound_ms")}},
             {"name": "block_patch", "route": "cuda", "source": K2_SOURCE,
              "replaces": K2_REPLACES, "launches": launches["block_patch"],
              "filtered_launches": filt_launches["block_patch"],
@@ -3544,7 +3650,7 @@ def main(argv=None) -> int:
              "max_abs_err": max(k2_err, times["k2_err"]),
              "ms": k2t["ms"], "plain_ms": k2t["plain_ms"],
              "bound_ms": k2t["bound_ms"], "bound_by": k2t["bound_by"],
-             "library_ms": k2t["library_ms"],
+             "library_ms": k2t["library_ms"], "host_ms": k2t["host_ms"],
              "shape": f"int32 patches={k2t['patches']}"},
         ]
         summary = {k: main_out[k] for k in ("n", "build_s", "build_points_per_s", "attach_s")}

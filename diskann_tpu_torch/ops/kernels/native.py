@@ -6,7 +6,9 @@ shared library with a plain C interface, loaded with ``ctypes``.  The build
 runs at first use, into ``diskann_tpu_torch/_build/<hash>/``, keyed by a hash
 of the sources and the compiler flags, so a fresh checkout builds itself and
 a rebuilt source never loads a stale library.  A failed compile raises with
-the compiler's stderr.
+the compiler's stderr; a good one leaves ptxas's report (registers, shared
+memory and spills of every kernel) beside the library, read by
+`ptxas_report`.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ NVCC_FLAGS = (
     "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
 )
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
+# compile-only: ptxas prints each kernel's registers, shared memory and spills
+REPORT_FLAGS = ("-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,8 +38,11 @@ _L = ctypes.c_longlong
 # C entry points: name -> argument types.  Every entry point returns the
 # launch's cudaError_t (0 = success) as an int.
 _SIGNATURES = {
-    # rows, n_rows, beam, qiw, bw, rp, dp, ids_out, aux_out, dots_out, stream
-    "fatrow_expand_launch": (_P, _L, _P, _P, _L, _I, _I, _P, _P, _P, _P),
+    # rows, n_rows, beam, qiw, bw, rp, dp, the plan (slots a stage, stages,
+    # warps, blocks, stage stride, shared bytes), ids_out, aux_out,
+    # dots_out, stream
+    "fatrow_expand_launch": (_P, _L, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _P, _P, _P, _P),
     # table, n_blocks, block_idx, vals, g, block_bytes, stream
     "block_patch_launch": (_P, _L, _P, _P, _L, _L, _P),
 }
@@ -76,10 +83,11 @@ def build() -> Path:
     with tempfile.TemporaryDirectory(dir=out.parent) as work:
         jobs = []
         for src in _sources():
-            cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o",
+            cmd = [_nvcc(), *NVCC_FLAGS, *REPORT_FLAGS, "-c", "-o",
                    os.path.join(work, src.stem + ".o"), str(src)]
             jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                stderr=subprocess.PIPE, text=True)))
+        report = []
         for cmd, proc in jobs:
             _, err = proc.communicate()
             if proc.returncode != 0:
@@ -88,6 +96,8 @@ def build() -> Path:
                     other.wait()
                 raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
                                    f"{' '.join(cmd)}\n{err}")
+            report.append(err)
+        (out.parent / "ptxas.txt").write_text("".join(report))
         # link to a private name, then rename: a concurrent build never
         # loads a half-written library
         tmp = os.path.join(work, "lib.so")
@@ -99,6 +109,12 @@ def build() -> Path:
                                f"{' '.join(cmd)}\n{proc.stderr}")
         os.replace(tmp, out)
     return out
+
+
+def ptxas_report() -> str:
+    """ptxas's report of the last build of these sources ("" if none)."""
+    path = library_path().parent / "ptxas.txt"
+    return path.read_text() if path.exists() else ""
 
 
 def library() -> ctypes.CDLL:

@@ -150,6 +150,110 @@ def test_fatrow_expand_kernel_matches_plain(cuda_device, rp, dp, nodes, bw):
         assert torch.equal(g, w)
 
 
+# every dp the reference takes (dp/4 divides 128)
+PACKED_DPS = (4, 8, 16, 32, 64, 128, 256, 512)
+
+
+def _round16(x):
+    return -(-x // 16) * 16
+
+
+@pytest.mark.parametrize("dp", PACKED_DPS)
+def test_fatrow_expand_plan_fits_and_aligns(dp):
+    # for every r_pack up to 256 and a few slot counts: the ring fits 227
+    # KB, its stages start on 128-byte boundaries and hold whole prefixes
+    # plus the slots' queries and dots, two stages or more wherever two fit
+    # (every rp <= 220 even at dp=512), and the grid has a group per block
+    for rp in range(1, 257):
+        idw, _, codr, cpr = k1._geometry(rp, dp)
+        prefix = (2 * idw + codr) * 512
+        for bw in (1, 7, 1003, 32768, 1 << 18):
+            p = k1.plan(rp, dp, bw)
+            sps = p.slots_per_stage
+            assert p.prefix_bytes == prefix
+            assert 1 <= sps <= min(k1.MAX_SLOTS_PER_STAGE, bw)
+            assert p.stage_bytes == prefix * sps and p.stage_bytes % 16 == 0
+            assert p.stage_stride % 128 == 0
+            assert p.stage_stride >= (p.stage_bytes + _round16(sps * dp)
+                                      + _round16(sps * codr * cpr * 4))
+            assert p.stages * (p.stage_stride + 8) <= p.smem_bytes <= 227 * 1024
+            fit = 227 * 1024 // (p.stage_stride + 8)
+            assert p.stages >= min(2, fit) and p.stages >= 1
+            if rp <= 220:
+                assert p.stages >= 2, (rp, dp, p)
+            # each warp owns stages / warps of the ring
+            assert 1 <= p.warps <= k1.WARPS
+            assert p.stages % p.warps == 0
+            # each SM keeps >= 64 KB in flight where the ring can hold it
+            assert (p.stages * p.stage_bytes >= 65536
+                    or p.stages + p.warps > fit)
+            assert 1 <= p.grid <= min(-(-bw // sps), k1.H100_SMS)
+            if prefix < k1.STAGE_TARGET // 2 and bw >= 32:
+                assert sps >= 2                   # small prefixes share a stage
+
+
+def test_fatrow_expand_plan_follows_the_card_and_rejects_bad_widths():
+    assert k1.plan(84, 128, 32768, n_sms=114).grid == 114
+    assert k1.plan(88, 64, 50).grid == 50               # fewer slots than SMs
+    assert k1.plan(16, 4, 50).grid == 10                # 5 slots a stage
+    for dp in (0, 2, 12, 24, 1024):                     # dp/4 must divide 128
+        with pytest.raises(ValueError):
+            k1.plan(16, dp, 100)
+    with pytest.raises(ValueError):                     # no stage holds one prefix
+        k1.plan(1024, 512, 100)
+
+
+# (rp, dp): both lane maps, a stage of several slots (dp <= 32) and of one
+K1_EDGE_WIDTHS = [(16, 4), (16, 8), (64, 32), (88, 64), (84, 128), (40, 512)]
+# beam shapes at the edges of the plan: one slot, fewer slots than blocks,
+# a ragged last group, every slot on one node, ids clamped at both ends
+K1_EDGE_CASES = ["one_slot", "below_grid", "ragged", "one_node", "clamped"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K1_EDGE_CASES)
+@pytest.mark.parametrize("rp,dp", K1_EDGE_WIDTHS)
+def test_fatrow_expand_kernel_edges_match_plain(cuda_device, rp, dp, case):
+    nodes = 300
+    sps = k1.plan(rp, dp, 1 << 16).slots_per_stage
+    bw = {"one_slot": 1, "below_grid": 50, "ragged": 40 * sps + sps // 2 + 1,
+          "one_node": 2048, "clamped": 2048}[case]
+    rows, beam, qiw = _expand_inputs(rp + dp + bw, nodes, bw, rp, dp)
+    if case == "one_node":
+        beam[:] = nodes // 2
+    elif case == "clamped":
+        beam[::2] = -(2**31)
+        beam[1::2] = 2**31 - 1
+        beam[2::5] = nodes
+        beam[3::5] = -1
+    args = [t(a).to(cuda_device) for a in (rows, beam, qiw)]
+    before = k1.launches
+    got = k1.fatrow_expand(*args, rp=rp, dp=dp)
+    assert k1.launches == before + 1
+    want = k1.fatrow_expand_plain(*args, rp=rp, dp=dp)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field,value", [("smem_bytes", 240_000), ("stages", 7),
+                                         ("stage_stride", 64)])
+def test_fatrow_expand_raises_on_a_refused_plan(cuda_device, monkeypatch, field, value):
+    # more shared memory than a block may have, stages the warps do not
+    # divide, a stride that does not hold a stage: the launch returns an
+    # error and the wrapper raises instead of running the plain version
+    import dataclasses
+
+    rows, beam, qiw = _expand_inputs(9, 64, 100, 84, 128)
+    plan = k1.plan
+    monkeypatch.setattr(k1, "plan", lambda *a, **kw: dataclasses.replace(
+        plan(*a, **kw), **{field: value}))
+    before = k1.launches
+    with pytest.raises(RuntimeError, match="fatrow_expand"):
+        k1.fatrow_expand(*[t(x).to(cuda_device) for x in (rows, beam, qiw)], rp=84, dp=128)
+    assert k1.launches == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
 def test_block_patch_kernel_matches_plain(cuda_device, dtype):
