@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA card.
 
-    python3 chip_smoke.py [--n 1000000] [--only kernels|sharded|sharded-trace|sharded6m]
+    python3 chip_smoke.py [--n 1000000]
+        [--only kernels|sharded|sharded-trace|sharded6m|build|rollback]
 
 Phases, each printing one line:
 
@@ -144,7 +145,31 @@ Phases, each printing one line:
    cards), interleaved; every run's ids at every L must equal the first
    one-card run's, each placement's first run traces its last insert call
    and one packed search (every card's busy share), and each operation's
-   medians and their ratio are printed.
+   medians and their ratio are printed;
+20. [rollback], run right after phase 5: insert batches and sharded calls
+   that fail part-way commit nothing.  (a) A copy of the 1M main index
+   with room for one more batch takes an insert of 8192 more points of
+   the main path's mixture under device-memory caps (the memory in use
+   plus 16, 64, 256 and 1,024 MiB, and, with the build-side router off,
+   half and 0.7 of that batch's own peak): each must end in a real
+   `torch.cuda.OutOfMemoryError`, the port's function whose frame raised
+   is logged, and every state and packed tensor's fingerprint (two int64
+   sums of its words), the counters, freelist and start must be as
+   before; then the L=24 ids must be as before, the insert must commit
+   (its journal's bytes printed) and the grown index must reach
+   recall@10 >= 0.95.  (b) A 100k x 128 packed index (dp=64) takes the
+   same insert failing at each of six points of `insert_batch_steps`
+   (the walk, the first prune, the 3a refresh, the backedge append, the
+   3c prune, the 3c refresh; injected by replacing the module attribute
+   for the call): bitwise as before, then a retry bitwise a copy that
+   never failed, K1 and K2 launched inside the failing batches; then
+   `tests/test_failure.py`'s corrupted adjacency on a copy, searched
+   packed (recall@10 >= 0.85, no id past the index).  (c) The one-card
+   [sharded] layout at 100k: an insert failing in shard 1's walk, a
+   delete failing in shard 1's repair and in its second packed refresh,
+   each leaving every shard and the bookkeeping bitwise as before; the
+   retries bitwise a copy that never failed.  The main build also
+   reports its `max_memory_allocated` and each batch's journal bytes.
 
 Phase 4 also builds a packed index of 20k 8-d points (dp=8) and attaches
 dp=256 to 2k x 256-d data, each searched packed on the card and on its CPU
@@ -180,7 +205,10 @@ On a host with several cards, phases 3 and 4's bitwise kernel checks run
 on every card.  Every timed span drains every card on both ends.
 
 `--only kernels` runs phases 1-3, the kernel checks on every card and
-phase 8's kernel times alone; `--only sharded` runs phases 1-3, the
+phase 8's kernel times alone; `--only build` the main path's data and
+packed build alone (its wall, `max_memory_allocated` and journal bytes;
+run from another checkout's root to measure that tree's build); `--only
+rollback` phases 1-3, 5 and 20; `--only sharded` runs phases 1-3, the
 kernel checks on every card and [sharded] alone; `--only sharded-trace` builds phase 19's index on card 0,
 traces one insert call and one packed search there, loads it onto every
 card and traces both again; `--only sharded6m` needs four cards (it
@@ -202,6 +230,7 @@ host without a CUDA card, or a directory without the package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import shutil
 import subprocess
@@ -311,6 +340,17 @@ SH10M_N, SH10M_D, SH10M_S, SH10M_R, SH10M_BATCH = 10_000_000, 32, 8, 16, 8192
 # `SHARDED10M_r04.json` (the JAX package on an 8-device CPU mesh), seconds
 SH10M_R04 = {"insert": 26.43, "delete": 63.88, "reinsert": 26.13, "save": 7.97,
              "load": 19.75}
+# [rollback]: the device-memory headroom of each out-of-memory cap (MiB
+# above the memory in use), the size of the injected-failure indexes, the
+# ids the sharded delete removes and the rows of corrupted adjacency
+ROLLBACK_CAPS_MIB = (16, 64, 256, 1024)
+# ... and, with the build-side router off, caps at these shares of that
+# batch's own peak (measured on a probe copy): with the router on, its
+# [2048, 65536] score block is the batch's peak, so every cap fails there
+ROLLBACK_PEAK_SHARES = (0.5, 0.7)
+ROLLBACK_N, ROLLBACK_DELETE, ROLLBACK_CORRUPT = 100_000, 5_000, 1_000
+# rows of the insert that fails (the main path's batch)
+ROLLBACK_BATCH = 8192
 # the H100 SXM's published peaks (NVIDIA data sheet): HBM bytes and dense
 # int8 operations per millisecond
 HBM_BYTES_PER_MS = 3.35e12 / 1e3
@@ -605,17 +645,26 @@ def run_main_path(n: int, device, *, search_batch: int = NQ):
         raise RuntimeError("groundtruth scan returned malformed ids")
     log(f"[main] exact top-{K} groundtruth: {out['gt_s']:.1f}s")
 
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     t0 = time.time()
-    idx = GraphIndex.build(xd, main_config(), insert_batch_size=8192,
-                           search_batch_size=search_batch, build_mode="packed",
-                           packed_dp=64, build_backedge_src_cap=64)
-    sync(torch, device)
+    with journal_sizes() as sizes:
+        idx = GraphIndex.build(xd, main_config(), insert_batch_size=8192,
+                               search_batch_size=search_batch, build_mode="packed",
+                               packed_dp=64, build_backedge_src_cap=64)
+        sync(torch, device)
     out["build_s"] = time.time() - t0
     out["build_points_per_s"] = n / out["build_s"]
+    if device.type == "cuda":
+        out["build_peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    out["journal_bytes"] = {"batches": len(sizes), "min": min(sizes), "max": max(sizes),
+                            "median": sorted(sizes)[len(sizes) // 2]}
     del xd
     log(f"[main] packed build (dp=64, r_pack={idx.packed.r_pack}, "
         f"nwr={idx.packed.nwr}): {out['build_s']:.1f}s "
-        f"({out['build_points_per_s']:.0f} points/s)")
+        f"({out['build_points_per_s']:.0f} points/s), max_memory_allocated "
+        f"{out.get('build_peak_bytes', 0) / 2**30:.3f} GiB; each batch's journal "
+        f"{json.dumps(out['journal_bytes'])} bytes")
 
     adj = idx.state.adjacency[: idx.n]
     deg = idx.state.degrees[: idx.n]
@@ -3421,14 +3470,536 @@ def only_sharded(torch, device, n: int, k1, k2) -> int:
     return 0
 
 
+# ------------------------------------------------------------------ rollback
+# where `graph/build.insert_batch_steps` is made to fail: (module, attribute,
+# failing call, a stepping generator?); each fails after its real call ran
+ROLLBACK_POINTS = {
+    "walk": ("build", "beam_search_scored_steps", 1, True),
+    "prune": ("build", "chunked_robust_prune_steps", 1, True),
+    "refresh_3a": ("packed", "refresh_rows", 1, False),
+    "append_edges": ("packed", "append_edges", 1, False),
+    "prune_3c": ("build", "chunked_robust_prune_steps", 2, True),
+    "refresh_3c": ("packed", "refresh_rows", 2, False),
+}
+
+
+def more_points(seed: int, m: int, n_clusters: int = 4096):
+    """``m`` more points of the main path's mixture: the cluster centres of
+    `make_clustered(0, ...)`, assignments and noise drawn from ``seed``."""
+    import numpy as np
+
+    centers = np.random.default_rng(0).standard_normal((n_clusters, D)).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, n_clusters, size=m)
+    return centers[a] + 0.35 * rng.standard_normal((m, D)).astype(np.float32)
+
+
+def clone_index(idx, capacity: int | None = None):
+    """A copy of `GraphIndex` ``idx`` on fresh graph and packed tensors with
+    room for ``capacity`` rows, so that inserts into it leave ``idx`` as it
+    is; its label and quantized attachments are left off."""
+    import copy
+    import dataclasses
+
+    from diskann_tpu_torch.graph import packed as packed_mod
+    from diskann_tpu_torch.graph import state as graph_state
+
+    cap = capacity or idx.state.capacity
+    c = copy.copy(idx)
+    # grow pads into new tensors, also by 0 rows; the sum is shared
+    c.state = graph_state.grow(idx.state._replace(vec_sum=idx.state.vec_sum.clone()), cap)
+    p = idx.packed
+    if cap == p.self_codes.shape[0]:
+        p = dataclasses.replace(p, self_codes=p.self_codes.clone(),
+                                self_aux=p.self_aux.clone(), rows=p.rows.clone())
+    c.packed = packed_mod.grow_packed(p, cap)
+    c.free_slots = list(idx.free_slots)
+    c.labels = c.pq = c.sq = c.mm = c.sph = None
+    c._pred_count_cache = {}
+    return c
+
+
+def clone_sharded(idx):
+    """A copy of `ShardedGraphIndex` ``idx`` on fresh tensors."""
+    import copy
+    import dataclasses
+
+    from diskann_tpu_torch.graph.state import GraphArrays
+
+    c = copy.copy(idx)
+    c.arrays = [GraphArrays(*(t.clone() for t in st)) for st in idx.arrays]
+    c.ext = [e.clone() for e in idx.ext]
+    c.starts = [t.clone() for t in idx.starts]
+    c.ns = idx.ns.copy()
+    c.packed = [dataclasses.replace(p, self_codes=p.self_codes.clone(),
+                                    self_aux=p.self_aux.clone(), rows=p.rows.clone())
+                for p in idx.packed]
+    return c
+
+
+def index_tensors(idx) -> dict:
+    """Every tensor of a `GraphIndex`'s state and packed table, by name."""
+    out = dict(idx.state._asdict())
+    out |= {f"packed.{f}": getattr(idx.packed, f) for f in ("self_codes", "self_aux", "rows")}
+    return out
+
+
+def index_host(idx) -> tuple:
+    return idx.n, idx.n_deleted, list(idx.free_slots), idx._start().tolist()
+
+
+def sharded_tensors(idx) -> dict:
+    """Every tensor of a `ShardedGraphIndex`, by shard and name."""
+    out = {}
+    for s in range(idx.n_shards):
+        out |= {f"{s}.{f}": t for f, t in idx.shard(s)._asdict().items()}
+        out |= {f"{s}.packed.{f}": getattr(idx.packed[s], f)
+                for f in ("self_codes", "self_aux", "rows")}
+        out[f"{s}.ext"], out[f"{s}.start"] = idx.ext[s], idx.starts[s]
+    return out
+
+
+def sharded_host(idx) -> tuple:
+    return idx.ns.tolist(), idx.next_ext, idx.n_deleted, idx._free_total, idx.cap_per_shard
+
+
+def differing(torch, got: dict, want: dict, nwr: int = 0) -> list:
+    """The names whose tensors differ bitwise; with ``nwr``, a packed
+    table's last fat row (``nwr`` word rows: the dump row that masked
+    writes hit, in no fixed order) is left out."""
+    bad = []
+    for name, w in want.items():
+        g = got[name]
+        if nwr and name.endswith("packed.rows"):
+            g, w = g[:-nwr], w[:-nwr]
+        if not torch.equal(g, w):
+            bad.append(name)
+    return bad
+
+
+def fingerprint(torch, tensors: dict) -> dict:
+    """Per tensor, two int64 sums over its words (4-, 2- or 1-byte, as
+    stored): unweighted, and weighted by the fixed pattern 1 + i % 65521
+    of the word's index i (int64 arithmetic wraps, deterministically).
+    Plain torch reductions, chunked to bound their temporaries."""
+    views = {4: torch.int32, 2: torch.int16, 1: torch.uint8}
+    out = {}
+    for name, t in tensors.items():
+        w = t.reshape(-1).view(views[t.element_size()])
+        s0 = torch.zeros((), dtype=torch.int64, device=t.device)
+        s1 = torch.zeros((), dtype=torch.int64, device=t.device)
+        for off in range(0, w.numel(), 1 << 24):
+            c = w[off:off + (1 << 24)].long()
+            s0 += c.sum()
+            s1 += (c * (torch.arange(off, off + c.numel(), device=t.device) % 65521 + 1)).sum()
+        out[name] = (int(s0), int(s1))
+    return out
+
+
+def raised_in(exc) -> str:
+    """The innermost `diskann_tpu_torch` frame of ``exc``'s traceback, as
+    module.function:line."""
+    where, tb = "outside diskann_tpu_torch", exc.__traceback__
+    while tb is not None:
+        path = tb.tb_frame.f_code.co_filename.replace("\\", "/")
+        if "/diskann_tpu_torch/" in path:
+            mod = path.rsplit("/diskann_tpu_torch/", 1)[1].removesuffix(".py").replace("/", ".")
+            where = f"{mod}.{tb.tb_frame.f_code.co_name}:{tb.tb_lineno}"
+        tb = tb.tb_next
+    return where
+
+
+@contextlib.contextmanager
+def journal_sizes():
+    """Collect the bytes every committed batch's `RowJournal` held (its own
+    count, read as the batch drops it) into the yielded list."""
+    from diskann_tpu_torch.graph import state as graph_state
+
+    sizes, drop = [], graph_state.RowJournal.drop
+
+    def counted(self):
+        sizes.append(self.nbytes)
+        drop(self)
+
+    graph_state.RowJournal.drop = counted
+    try:
+        yield sizes
+    finally:
+        graph_state.RowJournal.drop = drop
+
+
+@contextlib.contextmanager
+def failing(module, name: str, make):
+    """``module.name`` replaced by ``make(original)`` for the block."""
+    orig = getattr(module, name)
+    setattr(module, name, make(orig))
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def fail_after(torch, nth: int, generator: bool):
+    """A maker for `failing`: the call runs, and its ``nth`` call then
+    raises an injected `torch.cuda.OutOfMemoryError`."""
+    def make(orig):
+        calls = [0]
+
+        def gen(*a, **k):
+            calls[0] += 1
+            out = yield from orig(*a, **k)
+            if calls[0] == nth:
+                raise torch.cuda.OutOfMemoryError("injected")
+            return out
+
+        def call(*a, **k):
+            calls[0] += 1
+            out = orig(*a, **k)
+            if calls[0] == nth:
+                raise torch.cuda.OutOfMemoryError("injected")
+            return out
+
+        return gen if generator else call
+    return make
+
+
+def fail_on_shard(torch, state, flags: int):
+    """A maker for `failing` on a stepping generator function whose first
+    argument is a shard's `GraphArrays`: on ``state``'s shard it raises an
+    injected out-of-memory error after ``flags`` flags."""
+    def make(orig):
+        def gen(st, *a, **k):
+            g = orig(st, *a, **k)
+            if st is not state:
+                return (yield from g)
+            answer = None
+            for _ in range(flags):
+                answer = yield g.send(answer)
+            g.close()
+            raise torch.cuda.OutOfMemoryError("injected")
+        return gen
+    return make
+
+
+def expect_injected(torch, fn) -> None:
+    """Run ``fn``; it must raise the injected out-of-memory error."""
+    try:
+        fn()
+    except torch.cuda.OutOfMemoryError as exc:
+        if "injected" not in str(exc):
+            raise
+    else:
+        raise RuntimeError("[rollback] the injected failure never fired")
+
+
+def run_rollback_main(idx, qd, k1, k2) -> dict:
+    """[rollback] (a): real out-of-memory errors on the main path's 1M
+    index.  A copy with room for one more batch (the index itself stays as
+    the later phases need it) takes one insert of ROLLBACK_BATCH more
+    points of the main path's mixture under a device-memory cap of the
+    memory in use
+    plus each of ROLLBACK_CAPS_MIB, and, with the build-side router off
+    (as in every index below 4 x router_size rows), of ROLLBACK_PEAK_SHARES
+    of that batch's own peak (the same insert into another copy,
+    beforehand): each must raise a real `torch.cuda.OutOfMemoryError` (the
+    function of the port whose frame raised is logged) and leave every
+    state and packed tensor's
+    `fingerprint`, the counters, the freelist and the start as before.
+    Then, uncapped, the L=24 packed search must return the ids it returned
+    before the failures, and the insert must commit; its journal's bytes
+    and the grown index's recall@10 against its exact top-10 are
+    reported (below TARGET_RECALL fails)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from diskann_tpu_torch import FlatIndex
+    from diskann_tpu_torch.bench.recall import knn_recall
+
+    device = qd.device
+    kw = dict(l_search=24, beam_width=4, mode="packed", rerank_l=12, max_hops=6)
+    config = idx.config
+    no_router = dataclasses.replace(config, router_starts=0)
+    new = torch.from_numpy(more_points(1, ROLLBACK_BATCH)).to(device)
+    bs = idx.insert_batch_size
+    room = max(idx.state.capacity, idx.n + -(-ROLLBACK_BATCH // bs) * bs)
+    probe = clone_index(idx, room)
+    probe.config = no_router
+    torch.cuda.empty_cache()
+    in_use = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    probe.insert(new)
+    out = {"batch_peak_bytes": torch.cuda.max_memory_allocated(device) - in_use, "caps": []}
+    del probe
+    twin = clone_index(idx, room)
+    ids0 = twin.search(qd, K, **kw)[1]
+    fp0, host0 = fingerprint(torch, index_tensors(twin)), index_host(twin)
+    total = torch.cuda.get_device_properties(device).total_memory
+    caps = [(cap, config) for cap in ROLLBACK_CAPS_MIB] + [
+        (int(share * out["batch_peak_bytes"]) >> 20, no_router)
+        for share in ROLLBACK_PEAK_SHARES]
+    log(f"[rollback] one batch of {ROLLBACK_BATCH} into a copy of the main index, the "
+        f"build-side router off, peaks {out['batch_peak_bytes'] / 2**20:.1f} MiB above "
+        f"the memory in use; caps at + {[c for c, _ in caps]} MiB")
+    for cap_mib, cap_config in caps:
+        twin.config = cap_config
+        torch.cuda.empty_cache()
+        in_use = torch.cuda.memory_reserved(device)
+        take_launches(k1, k2)
+        torch.cuda.set_per_process_memory_fraction((in_use + cap_mib * 2**20) / total, device)
+        try:
+            twin.insert(new)
+        except torch.cuda.OutOfMemoryError as exc:
+            where = raised_in(exc)
+        else:
+            raise RuntimeError(f"[rollback] the insert fit under +{cap_mib} MiB: no "
+                               f"out-of-memory error")
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0, device)
+        launches = take_launches(k1, k2)
+        same = fingerprint(torch, index_tensors(twin)) == fp0 and index_host(twin) == host0
+        log(f"[rollback] cap in use + {cap_mib} MiB ({in_use / 2**30:.2f} GiB in use), "
+            f"router {'on' if twin.config is config else 'off'}: out of memory in "
+            f"{where}; kernel launches before it {launches}; fingerprints and host "
+            f"fields as before: {same}")
+        if not same:
+            raise RuntimeError(f"[rollback] the failed insert under +{cap_mib} MiB "
+                               f"changed the index")
+        out["caps"].append({"cap_mib": cap_mib, "router": twin.config is config,
+                            "in_use_gib": in_use / 2**30, "raised_in": where,
+                            "launches": launches})
+    twin.config = config
+    torch.cuda.empty_cache()
+    ids1 = twin.search(qd, K, **kw)[1]
+    if not np.array_equal(ids1, ids0):
+        raise RuntimeError("[rollback] the L=24 ids changed after the failed inserts")
+    with journal_sizes() as sizes:
+        _, out["insert_s"] = _timed(torch, device, lambda: twin.insert(new))
+    out["journal_bytes"] = sizes
+    _, gt = FlatIndex(twin.state.vectors[: twin.n]).search(qd, K)
+    out["recall_grown"] = knn_recall(twin.search(qd, K, **kw)[1], gt, K)
+    log(f"[rollback] the same L=24 ids after the failures; the insert then "
+        f"committed in {out['insert_s']:.2f}s, its journal {sizes[0] / 2**20:.1f} MiB; "
+        f"recall@{K} of the grown {twin.n}-point index at L=24: {out['recall_grown']:.4f}")
+    if out["recall_grown"] < TARGET_RECALL:
+        raise RuntimeError(f"[rollback] recall@{K} of the grown index "
+                           f"{out['recall_grown']:.4f} < {TARGET_RECALL}")
+    del twin
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_rollback_points(device, k1, k2) -> dict:
+    """[rollback] (b): failures injected at each of ROLLBACK_POINTS into an
+    insert of ROLLBACK_BATCH points on a ROLLBACK_N x 128 index of the main
+    path's mixture (the main build's settings, packed at dp=64): each failed
+    insert must leave the index bitwise as it was, and its retry bitwise
+    equal to a copy that never failed (the dump row aside); K1 and K2
+    must have launched inside the failing batches.  Then the corrupted-
+    adjacency search on a copy of the same index (`check_corrupt_adjacency`)."""
+    import torch
+
+    from diskann_tpu_torch import GraphIndex
+    from diskann_tpu_torch.graph import build as build_mod
+    from diskann_tpu_torch.graph import packed as packed_mod
+
+    modules = {"build": build_mod, "packed": packed_mod}
+    xd = torch.from_numpy(more_points(2, ROLLBACK_N + ROLLBACK_BATCH)).to(device)
+    base = GraphIndex.build(xd[:ROLLBACK_N], main_config(),
+                            insert_batch_size=ROLLBACK_BATCH, build_mode="packed",
+                            packed_dp=64, build_backedge_src_cap=64,
+                            capacity=ROLLBACK_N + ROLLBACK_BATCH)
+    new = xd[ROLLBACK_N:]
+    twin = clone_index(base)
+    twin.insert(new)
+    want_t, want_h = index_tensors(base), index_host(base)
+    done_t, done_h = index_tensors(twin), index_host(twin)
+    nwr = base.packed.nwr
+    out = {"points": {}}
+    total = {"fatrow_expand": 0, "block_patch": 0}
+    for point, (mod, name, nth, gen) in ROLLBACK_POINTS.items():
+        c = clone_index(base)
+        take_launches(k1, k2)
+        with failing(modules[mod], name, fail_after(torch, nth, gen)):
+            expect_injected(torch, lambda: c.insert(new))
+        launches = take_launches(k1, k2)
+        bad = differing(torch, index_tensors(c), want_t)
+        same = not bad and index_host(c) == want_h
+        c.insert(new)
+        bad_retry = differing(torch, index_tensors(c), done_t, nwr)
+        retry = not bad_retry and index_host(c) == done_h
+        log(f"[rollback] failure at {point}: kernel launches in the failed batch "
+            f"{launches}; bitwise as before {same} {bad}; retry bitwise the twin's "
+            f"{retry} {bad_retry}")
+        if not (same and retry):
+            raise RuntimeError(f"[rollback] failure at {point}: the index differs")
+        out["points"][point] = {"launches": launches}
+        for k in total:
+            total[k] += launches[k]
+        del c
+    if min(total.values()) == 0:
+        raise RuntimeError(f"[rollback] a kernel never ran in the failing batches: {total}")
+    out["failing_launches"] = total
+    out["corrupt"] = check_corrupt_adjacency(base, xd[:ROLLBACK_N], k1)
+    del base, twin
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_corrupt_adjacency(base, xd, k1) -> dict:
+    """`tests/test_failure.py`'s corrupted adjacency on the card: a copy of
+    ``base`` re-attached at dp=128 (as the main path searches), then
+    ROLLBACK_CORRUPT rows get an out-of-range id and -7, and their fat
+    rows are rebuilt with them; the packed walk hands those ids to K1 as
+    beam ids.  1024 queries next to indexed points at L=32 must return no
+    id past the index, with recall@10 >= 0.85 and K1 launched."""
+    import numpy as np
+    import torch
+
+    from diskann_tpu_torch import FlatIndex
+    from diskann_tpu_torch.bench.recall import knn_recall
+    from diskann_tpu_torch.graph import packed as packed_mod
+
+    c = clone_index(base)
+    c.attach_packed(dp=128)
+    cap = c.state.capacity
+    rows = torch.as_tensor(np.random.default_rng(9).choice(c.n, ROLLBACK_CORRUPT, replace=False),
+                           device=xd.device)
+    c.state.adjacency[rows, 0] = cap + 1000
+    c.state.adjacency[rows, 1] = -7
+    packed_mod.refresh_rows(c.packed, c.state.adjacency, rows)
+    q = xd[:1024] + 0.01
+    _, gt = FlatIndex(xd).search(q, K)
+    before = k1.launches
+    _, ids, _ = c.search(q, K, l_search=32, mode="packed")
+    sync(torch, xd.device)
+    out = {"recall": knn_recall(ids, gt, K), "k1_launches": k1.launches - before,
+           "max_id": int(ids.max())}
+    log(f"[rollback] corrupted adjacency ({ROLLBACK_CORRUPT} rows: id {cap + 1000} and -7), "
+        f"packed walk at L=32: recall@{K} {out['recall']:.4f}, largest id {out['max_id']} "
+        f"of {c.n}, K1 launches {out['k1_launches']}")
+    if out["max_id"] > c.n or out["recall"] < 0.85 or out["k1_launches"] == 0:
+        raise RuntimeError(f"[rollback] corrupted adjacency: {out}")
+    return out
+
+
+def run_rollback_sharded(device, k1, k2) -> dict:
+    """[rollback] (c): the one-card [sharded] layout at ROLLBACK_N points
+    (SHARD_S shards on ``device``, the k-means partition with overlap 2,
+    inserts of ROLLBACK_BATCH, attach_packed(dp=128)).  An insert of
+    ROLLBACK_BATCH more rows fails in shard 1's walk; a delete of ROLLBACK_DELETE external ids fails
+    in shard 1's repair, then in its second packed refresh: each call must
+    leave every shard's tensors and the host bookkeeping bitwise as they
+    were.  The insert and delete then commit, bitwise equal to a copy that
+    never failed (the dump rows aside)."""
+    import numpy as np
+    import torch
+
+    from diskann_tpu_torch.parallel import ShardedGraphIndex, kmeans_partition
+    from diskann_tpu_torch.parallel import sharded as sharded_mod
+
+    x = more_points(3, ROLLBACK_N + ROLLBACK_BATCH)
+    _, assign = kmeans_partition(x[:ROLLBACK_N], SHARD_S, overlap=2, device=device)
+    counts = np.bincount(assign.ravel(), minlength=SHARD_S)
+    idx = ShardedGraphIndex([device] * SHARD_S, D, main_config(),
+                            cap_per_shard=int(counts.max()) + ROLLBACK_BATCH)
+    x, new = x[:ROLLBACK_N], x[ROLLBACK_N:]
+    for off in range(0, ROLLBACK_N, ROLLBACK_BATCH):
+        idx.insert(x[off:off + ROLLBACK_BATCH], assign[off:off + ROLLBACK_BATCH])
+    idx.attach_packed(dp=128)
+    rr = np.arange(ROLLBACK_BATCH)
+    new_assign = np.stack([rr % SHARD_S, (rr + 1) % SHARD_S], 1)
+    doomed = np.random.default_rng(4).choice(ROLLBACK_N, ROLLBACK_DELETE, replace=False)
+    twin = clone_sharded(idx)
+    twin.insert(new, new_assign)
+    twin.delete(doomed)
+    want_t, want_h = sharded_tensors(clone_sharded(idx)), sharded_host(idx)
+    out = {"shards": SHARD_S, "rows_per_shard": counts.tolist(), "calls": {}}
+
+    def refresh_fails(orig):
+        calls = [0]
+
+        def call(packed, adjacency, rows, journal=None):
+            orig(packed, adjacency, rows, journal)
+            if packed is idx.packed[1]:
+                calls[0] += 1
+                if calls[0] == 2:
+                    raise torch.cuda.OutOfMemoryError("injected")
+        return call
+
+    for what, module, name, make, fn in (
+            ("insert, shard 1's walk", sharded_mod, "insert_batch_steps",
+             fail_on_shard(torch, idx.shard(1), 3), lambda: idx.insert(new, new_assign)),
+            ("delete, shard 1's repair", sharded_mod.delete_mod, "patch_rows_steps",
+             fail_on_shard(torch, idx.shard(1), 1), lambda: idx.delete(doomed)),
+            ("delete, shard 1's second packed refresh", sharded_mod.packed_mod,
+             "refresh_rows", refresh_fails, lambda: idx.delete(doomed))):
+        take_launches(k1, k2)
+        with failing(module, name, make):
+            expect_injected(torch, fn)
+        launches = take_launches(k1, k2)
+        bad = differing(torch, sharded_tensors(idx), want_t)
+        same = not bad and sharded_host(idx) == want_h
+        log(f"[rollback] sharded {what}: kernel launches {launches}; every shard and "
+            f"the bookkeeping bitwise as before {same} {bad}")
+        if not same:
+            raise RuntimeError(f"[rollback] sharded {what}: the index differs")
+        out["calls"][what] = {"launches": launches}
+    idx.insert(new, new_assign)
+    idx.delete(doomed)
+    nwr = idx.packed[0].nwr
+    bad = differing(torch, sharded_tensors(idx), sharded_tensors(twin), nwr)
+    retry = not bad and sharded_host(idx) == sharded_host(twin)
+    log(f"[rollback] sharded retry of the insert and the delete bitwise the twin's: "
+        f"{retry} {bad}")
+    if not retry:
+        raise RuntimeError("[rollback] the sharded retry differs from the twin")
+    del idx, twin
+    torch.cuda.empty_cache()
+    return out
+
+
+def only_build(torch, device, n: int) -> int:
+    """`--only build`: the main path's data and its packed build alone; prints
+    the build's wall seconds, its `max_memory_allocated` and the bytes of
+    each batch's `RowJournal`.  From another checkout's root (the package
+    there, this script copied in) it measures that tree's build, whose
+    package may predate the journal."""
+    from diskann_tpu_torch import GraphIndex
+    from diskann_tpu_torch.bench.harness import make_clustered
+    from diskann_tpu_torch.graph import state as graph_state
+
+    x, _ = make_clustered(0, n, NQ, D, n_clusters=4096, sigma=0.35)
+    xd = torch.from_numpy(x).to(device)
+    del x
+    sizes = contextlib.nullcontext([])
+    if hasattr(graph_state, "RowJournal"):
+        sizes = journal_sizes()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    with sizes as journal:
+        idx, dt = _timed(torch, device, lambda: GraphIndex.build(
+            xd, main_config(), insert_batch_size=8192, search_batch_size=NQ,
+            build_mode="packed", packed_dp=64, build_backedge_src_cap=64))
+    out = {"n": idx.n, "build_s": dt,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(device),
+           "journal_bytes": journal or None}
+    log("[summary] " + json.dumps(out))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
                     help="database size of the main path (default 1,000,000)")
-    ap.add_argument("--only", choices=["kernels", "sharded", "sharded-trace", "sharded6m"],
+    ap.add_argument("--only", choices=["kernels", "sharded", "sharded-trace", "sharded6m",
+                                       "build", "rollback"],
                     help="after the build and the kernel checks, run only this phase "
                          "and print its summary; no result line (kernels: the kernel "
-                         "times of phase 8; sharded6m needs four cards)")
+                         "times of phase 8; sharded6m needs four cards; build: the "
+                         "main path's packed build alone; rollback: the main path, "
+                         "then [rollback])")
     args = ap.parse_args(argv)
 
     import torch
@@ -3482,9 +4053,12 @@ def main(argv=None) -> int:
     if args.only == "sharded6m":
         log("[summary] " + json.dumps({"sharded6m": run_sharded6m(device, k1, k2)}))
         return 0
-    check_small_input(torch, device)
-    check_small_tiered(torch, device)
-    check_packed_widths(torch, device, k1)
+    if args.only == "build":
+        return only_build(torch, device, args.n)
+    if args.only != "rollback":
+        check_small_input(torch, device)
+        check_small_tiered(torch, device)
+        check_packed_widths(torch, device, k1)
     torch.cuda.empty_cache()
     lap("build_and_small_checks")
 
@@ -3502,6 +4076,18 @@ def main(argv=None) -> int:
     if min(launches.values()) == 0:
         raise RuntimeError(f"a kernel of the main path never launched: {launches}")
     lap("main")
+
+    # [rollback]: inserts and sharded calls that fail commit nothing
+    rollback = {"main": run_rollback_main(idx, qd, k1, k2),
+                "points": run_rollback_points(device, k1, k2),
+                "sharded": run_rollback_sharded(device, k1, k2)}
+    take_launches(k1, k2)
+    torch.cuda.empty_cache()
+    lap("rollback")
+    if args.only == "rollback":
+        log("[summary] " + json.dumps({"main": main_out, "rollback": rollback,
+                                       "walls": walls}))
+        return 0
 
     # the main path's index as built, for the [bench] phase's abgate
     # (`--idx-cache`); later phases attach codes and drop its vectors
@@ -3628,6 +4214,8 @@ def main(argv=None) -> int:
              "filtered_launches": filt_launches["fatrow_expand"],
              "stream_launches": stream_launches["fatrow_expand"],
              **{f"{p}_launches": phase_launches[p]["fatrow_expand"] for p in phase_launches},
+             "rollback_failing_launches":
+                 rollback["points"]["failing_launches"]["fatrow_expand"],
              "max_abs_err": max(k1_err, times["k1_err"]),
              "ms": k1t["ms"], "plain_ms": k1t["plain_ms"],
              "bound_ms": k1t["bound_ms"], "bound_by": k1t["bound_by"],
@@ -3647,13 +4235,16 @@ def main(argv=None) -> int:
              "filtered_launches": filt_launches["block_patch"],
              "stream_launches": stream_launches["block_patch"],
              **{f"{p}_launches": phase_launches[p]["block_patch"] for p in phase_launches},
+             "rollback_failing_launches":
+                 rollback["points"]["failing_launches"]["block_patch"],
              "max_abs_err": max(k2_err, times["k2_err"]),
              "ms": k2t["ms"], "plain_ms": k2t["plain_ms"],
              "bound_ms": k2t["bound_ms"], "bound_by": k2t["bound_by"],
              "library_ms": k2t["library_ms"], "host_ms": k2t["host_ms"],
              "shape": f"int32 patches={k2t['patches']}"},
         ]
-        summary = {k: main_out[k] for k in ("n", "build_s", "build_points_per_s", "attach_s")}
+        summary = {k: main_out[k] for k in ("n", "build_s", "build_points_per_s", "attach_s",
+                                            "build_peak_bytes", "journal_bytes")}
         summary["peak_gib"] = peak / 2**30
         summary["sweep"] = [{k: p[k] for k in ("l", "recall", "qps", "mean_hops")}
                             for p in main_out["sweep"]]
@@ -3672,6 +4263,7 @@ def main(argv=None) -> int:
         summary["dtypes"] = dtypes
         summary["bench"] = bench
         summary["sharded"] = sharded
+        summary["rollback"] = rollback
         summary["walls"] = walls
         log("[summary] " + json.dumps(summary))
         print(json.dumps({"kernels": kernels}))

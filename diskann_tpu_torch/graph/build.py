@@ -16,7 +16,9 @@ tensors:
 The graph and packed tables are updated in place: the reference donated
 them to its jitted batch for the same reason (one copy of each table).
 Writes that the reference aims at index ``cap`` for a scatter to drop are
-masked out explicitly here.
+masked out explicitly here.  Given a `RowJournal`, every write first
+saves what it overwrites, so the caller can undo a batch that raises
+part-way (the reference's batch, a pure function, then never commits).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from diskann_tpu_torch.graph.config import GraphConfig
 from diskann_tpu_torch.graph.prune import robust_prune_steps
 from diskann_tpu_torch.graph.scorers import packed_router_starts, packed_scorer
 from diskann_tpu_torch.graph.search import beam_search_scored_steps, beam_search_steps
-from diskann_tpu_torch.graph.state import GraphArrays, set_vectors, to_stored
+from diskann_tpu_torch.graph.state import GraphArrays, RowJournal, set_vectors, to_stored
 from diskann_tpu_torch.ops.distance import pairwise_distance
 from diskann_tpu_torch.ops.topk import SENTINEL, sort_with
 
@@ -105,6 +107,7 @@ def insert_batch(
     *,
     backedge_src_cap: int = 64,
     router=None,                # (rc [S, dp] i8, raux [S] f32, rids [S] i32) | None
+    journal: RowJournal | None = None,
 ):
     """Insert a batch of M new points at ``slot_ids``, in place.
 
@@ -112,8 +115,10 @@ def insert_batch(
     layout, the prune recomputes distances from the raw vectors, and the
     packed table is kept in step.  Without one (the full build), the walk
     is the full-precision `beam_search` from ``start_ids`` (``router`` is
-    ignored) and the prune takes the walk's distances.  Returns (state,
-    packed, stats)."""
+    ignored) and the prune takes the walk's distances.  ``journal``
+    saves every row, cell and sum the batch overwrites before it does;
+    ``journal.restore()`` after an exception puts the state and the
+    packed table back bitwise.  Returns (state, packed, stats)."""
     return steps.run(insert_batch_steps(**locals()))
 
 
@@ -128,6 +133,7 @@ def insert_batch_steps(
     *,
     backedge_src_cap: int = 64,
     router=None,                # (rc [S, dp] i8, raux [S] f32, rids [S] i32) | None
+    journal: RowJournal | None = None,
 ):
     """The stepping form of `insert_batch` (`graph/steps.py`): the
     candidate walk's and the prunes' flags."""
@@ -152,10 +158,10 @@ def insert_batch_steps(
     )
 
     # ---------------- phase 1: set elements ----------------
-    set_vectors(state, slot_ids, new_vecs, row_valid=row_valid)
+    set_vectors(state, slot_ids, new_vecs, row_valid=row_valid, journal=journal)
     if packed is not None:
         codes, aux = packed_mod.encode(packed, new_vecs, metric)
-        packed_mod.set_self_codes(packed, new_ids, codes, aux)
+        packed_mod.set_self_codes(packed, new_ids, codes, aux, journal=journal)
 
     # ---------------- phase 2: candidate generation ----------------
     if packed is None:
@@ -229,10 +235,13 @@ def insert_batch_steps(
     # ---------------- phase 3a: commit out-edges ----------------
     out_rows = torch.nn.functional.pad(out_ids, (0, r_slack - r), value=-1)
     w_live = slot_ids[row_valid].long()
+    if journal is not None:
+        journal.save(state.adjacency, w_live)
+        journal.save(state.degrees, w_live)
     state.adjacency[w_live] = out_rows[row_valid]
     state.degrees[w_live] = out_n[row_valid]
     if packed is not None:
-        packed_mod.refresh_rows(packed, state.adjacency, w_live)
+        packed_mod.refresh_rows(packed, state.adjacency, w_live, journal=journal)
 
     # ---------------- phase 3b: backedges ----------------
     tgt = out_ids[:, : min(config.max_backedges, r)] \
@@ -265,11 +274,15 @@ def insert_batch_steps(
     append_ok = ok_s & (slot < r_slack) & (tkey_s != SENTINEL)
 
     adj_flat = state.adjacency.view(-1)
-    adj_flat[tkey_c[append_ok] * r_slack + slot[append_ok]] = src_s[append_ok]
+    cells = tkey_c[append_ok] * r_slack + slot[append_ok]
     t_app = tkey_c[append_ok]
+    if journal is not None:
+        journal.save(adj_flat, cells)
+        journal.save(state.degrees, t_app)
+    adj_flat[cells] = src_s[append_ok]
     state.degrees.index_add_(0, t_app, torch.ones_like(t_app, dtype=torch.int32))
     if packed is not None:
-        packed_mod.append_edges(packed, tkey_s, slot, src_s, append_ok)
+        packed_mod.append_edges(packed, tkey_s, slot, src_s, append_ok, journal=journal)
 
     # ---------------- phase 3c: re-prune overfull targets ----------------
     overflow = ok_s & (slot >= r_slack)
@@ -294,11 +307,14 @@ def insert_batch_steps(
             state.vectors, state.vectors[t_l], pool_ids, None, t_u, config,
             degree=r,
         )
+        if journal is not None:
+            journal.save(state.adjacency, t_l)
+            journal.save(state.degrees, t_l)
         state.adjacency[t_l] = torch.nn.functional.pad(
             rp_ids, (0, r_slack - r), value=-1
         )
         state.degrees[t_l] = rp_n
         if packed is not None:
-            packed_mod.refresh_rows(packed, state.adjacency, t_l)
+            packed_mod.refresh_rows(packed, state.adjacency, t_l, journal=journal)
 
     return state, packed, InsertStats(cmps=res.cmps, hops=res.hops)

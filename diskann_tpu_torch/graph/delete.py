@@ -37,7 +37,7 @@ from diskann_tpu_torch.graph import steps
 from diskann_tpu_torch.graph.build import chunked_robust_prune_steps
 from diskann_tpu_torch.graph.config import GraphConfig
 from diskann_tpu_torch.graph.search import beam_search
-from diskann_tpu_torch.graph.state import GraphArrays
+from diskann_tpu_torch.graph.state import GraphArrays, RowJournal
 from diskann_tpu_torch.ops.distance import distance_to_set
 from diskann_tpu_torch.ops.topk import sort_with
 
@@ -62,17 +62,21 @@ def _live(state: GraphArrays, ids: torch.Tensor) -> torch.Tensor:
     return (ids >= 0) & state.valid[ids.long().clamp(0, cap - 1)]
 
 
-def mark_deleted(state: GraphArrays, ids) -> torch.Tensor:
+def mark_deleted(state: GraphArrays, ids, journal: RowJournal | None = None) -> torch.Tensor:
     """Clear the liveness of ``ids`` and take their vectors out of the
     running sum, in place.  Ids outside the table, already deleted or
     repeated are skipped.  Returns the ids marked, [D] int64 on the
-    state's device, in the order of their first occurrence."""
+    state's device, in the order of their first occurrence.  ``journal``
+    keeps the liveness rows and the sum first."""
     ids = np.asarray(torch.as_tensor(ids).cpu(), np.int64).ravel()
     _, first = np.unique(ids, return_index=True)
     ids = ids[np.sort(first)]
     ids = ids[(ids >= 0) & (ids < state.capacity)]
     t = torch.as_tensor(ids, device=state.valid.device)
     t = t[state.valid[t]]
+    if journal is not None:
+        journal.save(state.valid, t)
+        journal.save(state.vec_sum)
     state.valid[t] = False
     state.vec_sum.sub_(state.vectors[t].float().sum(0))
     return t
@@ -146,9 +150,10 @@ def patch_rows(state: GraphArrays, rows, config: GraphConfig, *,
 
 
 def patch_rows_steps(state: GraphArrays, rows, config: GraphConfig, *,
-                     max_dead: int = 4, repl_lookup=None, repl_table=None):
+                     max_dead: int = 4, repl_lookup=None, repl_table=None,
+                     journal: RowJournal | None = None):
     """The stepping form of `patch_rows` (`graph/steps.py`): the prune's
-    flags."""
+    flags.  ``journal`` keeps the rows before they are written."""
     rows = _in_range(state, rows)
     if rows.numel() == 0:
         return state
@@ -159,6 +164,9 @@ def patch_rows_steps(state: GraphArrays, rows, config: GraphConfig, *,
         state.vectors, p_vec, pool_ids, pool_d, rows.to(torch.int32), config,
         degree=r,
     )
+    if journal is not None:
+        journal.save(state.adjacency, rows)
+        journal.save(state.degrees, rows)
     state.adjacency[rows] = torch.nn.functional.pad(
         new_ids, (0, state.max_degree_slack - r), value=-1)
     state.degrees[rows] = new_n
@@ -199,9 +207,15 @@ def fill_rows(state: GraphArrays, rows, config: GraphConfig, *,
     return state
 
 
-def drop_deleted_rows(state: GraphArrays) -> GraphArrays:
-    """Clear the adjacency rows of deleted nodes, in place."""
+def drop_deleted_rows(state: GraphArrays, journal: RowJournal | None = None) -> GraphArrays:
+    """Clear the adjacency rows of deleted nodes, in place.  ``journal``
+    keeps the rows this changes first (those not already clear)."""
     gone = ~state.valid
+    if journal is not None:
+        rows = torch.nonzero(gone & ((state.adjacency != -1).any(1)
+                                     | (state.degrees != 0))).squeeze(1)
+        journal.save(state.adjacency, rows)
+        journal.save(state.degrees, rows)
     state.adjacency.masked_fill_(gone[:, None], -1)
     state.degrees.masked_fill_(gone, 0)
     return state

@@ -32,6 +32,7 @@ inserts itself.
 from __future__ import annotations
 
 import dataclasses
+import traceback
 from typing import NamedTuple
 
 import numpy as np
@@ -389,26 +390,31 @@ class GraphIndex:
         if needed <= cap:
             return
         new_cap = _round_up(max(needed, int(cap * 1.5)), self.insert_batch_size)
-        self.state = graph_state.grow(self.state, new_cap)
-        if self.packed is not None:
-            self.packed = packed_mod.grow_packed(self.packed, new_cap)
         extra = new_cap - cap
+        # every table is grown before any is replaced: an allocation that
+        # fails leaves the index as it was
+        grown = {"state": graph_state.grow(self.state, new_cap)}
+        if self.packed is not None:
+            grown["packed"] = packed_mod.grow_packed(self.packed, new_cap)
         if self.labels is not None:
-            self.labels.bits = torch.nn.functional.pad(self.labels.bits, (0, 0, 0, extra))
-            self.labels.capacity = new_cap
+            bits = torch.nn.functional.pad(self.labels.bits, (0, 0, 0, extra))
         # the code tables grow with empty rows (an insert encodes nothing)
         pad2 = lambda a: torch.nn.functional.pad(a, (0, 0, 0, extra))  # noqa: E731
         pad1 = lambda a, v=0.0: torch.nn.functional.pad(a, (0, extra), value=v)  # noqa: E731
         if self.pq is not None:
-            self.pq_codes = pad2(self.pq_codes)
+            grown["pq_codes"] = pad2(self.pq_codes)
         if self.sq is not None:
-            self.sq_codes, self.sq_aux = pad2(self.sq_codes), pad1(self.sq_aux)
+            grown |= {"sq_codes": pad2(self.sq_codes), "sq_aux": pad1(self.sq_aux)}
         if self.sph is not None:
-            self.sph_words = pad2(self.sph_words)
-            self.sph_norms, self.sph_cscale = pad1(self.sph_norms), pad1(self.sph_cscale)
+            grown |= {"sph_words": pad2(self.sph_words), "sph_norms": pad1(self.sph_norms),
+                      "sph_cscale": pad1(self.sph_cscale)}
         if self.mm is not None:
-            self.mm_codes, self.mm_aux = pad2(self.mm_codes), pad1(self.mm_aux)
-            self.mm_lo, self.mm_step = pad1(self.mm_lo), pad1(self.mm_step, 1.0)
+            grown |= {"mm_codes": pad2(self.mm_codes), "mm_aux": pad1(self.mm_aux),
+                      "mm_lo": pad1(self.mm_lo), "mm_step": pad1(self.mm_step, 1.0)}
+        for name, value in grown.items():
+            setattr(self, name, value)
+        if self.labels is not None:
+            self.labels.bits, self.labels.capacity = bits, new_cap
 
     def set_start_strategy(self, strategy: str = "medoid", k: int = 1,
                            seed: int = 0) -> None:
@@ -456,10 +462,22 @@ class GraphIndex:
         minibatches, each committed by `graph/build.insert_batch`: on the
         packed layout (kept up to date, router entry points once enough
         rows are committed) when one is attached, else on the
-        full-precision vectors."""
+        full-precision vectors.
+
+        Each minibatch commits whole or not at all, as the reference's
+        does: an exception inside one (out of device memory, a kernel
+        build error, an interrupt) restores every row, cell and sum it
+        wrote from its `RowJournal`, puts its freed slots and those of
+        the minibatches after it back on the freelist in their order, and
+        is re-raised; the minibatches before it stay committed, and so
+        does a capacity already grown.  A sticky CUDA error leaves the
+        device unusable and nothing can be restored."""
         vectors = torch.as_tensor(vectors, dtype=torch.float32, device=self.device)
         if vectors.dim() == 1:
             vectors = vectors[None]
+        if vectors.dim() != 2 or vectors.shape[1] != self.dim:
+            raise ValueError(f"expected vectors of width {self.dim}, "
+                             f"got shape {tuple(vectors.shape)}")
         m_total = vectors.shape[0]
         reuse = min(len(self.free_slots), m_total)
         slots = np.empty((m_total,), np.int64)
@@ -468,11 +486,12 @@ class GraphIndex:
             del self.free_slots[-reuse:]
         fresh = m_total - reuse
         slots[reuse:] = np.arange(self.n, self.n + fresh)
-        self._ensure_capacity(self.n + _round_up(fresh, self.insert_batch_size))
 
         bs = self.insert_batch_size
         cmps = torch.zeros((), dtype=torch.int64, device=self.device)
         hops = torch.zeros((), dtype=torch.int64, device=self.device)
+        caches = (self._auto_start, self._router_ids, self._router_rows_cache,
+                  self._flat_bf16)
         self._invalidate_start()  # one medoid refresh per insert call
         # Build-side router entry points, once >= 4 x router_size nodes are
         # committed; the sampled table is re-gathered every 16 batches.
@@ -482,35 +501,58 @@ class GraphIndex:
                       and self.config.router_starts > 0)
         router = None
         next_router_refresh = 0
-        for bi, off in enumerate(range(0, m_total, bs)):
-            chunk = vectors[off:off + bs]
-            m = chunk.shape[0]
-            schunk = torch.as_tensor(slots[off:off + bs].astype(np.int32),
-                                     device=self.device)
-            if m < bs:
-                # pad ragged batches: batch width sets the intra-batch and
-                # re-prune shapes, as in the reference
-                chunk = torch.nn.functional.pad(chunk, (0, 0, 0, bs - m))
-                schunk = torch.nn.functional.pad(schunk, (0, bs - m), value=-1)
-            row_valid = torch.arange(bs, device=self.device) < m
-            committed = base_n + off
-            if use_router and committed >= 4 * r_size and bi >= next_router_refresh:
-                rng_r = np.random.default_rng(0xD15C ^ committed)
-                rids = np.sort(rng_r.choice(committed, size=r_size, replace=False))
-                rids = torch.as_tensor(rids.astype(np.int32), device=self.device)
-                router = (self.packed.self_codes[rids.long()],
-                          self.packed.self_aux[rids.long()], rids)
-                next_router_refresh = bi + 16
-            with span("insert.batch", offset=off, rows=m):
-                _, _, stats = insert_batch(
-                    self.state, schunk, chunk, row_valid, self._start(),
-                    self.config, self.packed,
-                    backedge_src_cap=self.build_backedge_src_cap, router=router,
-                )
-            self.n = max(self.n, int(slots[off:off + m].max()) + 1)
-            cmps += stats.cmps.sum()
-            hops += stats.hops.sum()
-        self.n_deleted -= reuse
+        done = 0        # rows committed
+        try:
+            self._ensure_capacity(self.n + _round_up(fresh, bs))
+            for bi, off in enumerate(range(0, m_total, bs)):
+                chunk = vectors[off:off + bs]
+                m = chunk.shape[0]
+                schunk = torch.as_tensor(slots[off:off + bs].astype(np.int32),
+                                         device=self.device)
+                if m < bs:
+                    # pad ragged batches: batch width sets the intra-batch and
+                    # re-prune shapes, as in the reference
+                    chunk = torch.nn.functional.pad(chunk, (0, 0, 0, bs - m))
+                    schunk = torch.nn.functional.pad(schunk, (0, bs - m), value=-1)
+                row_valid = torch.arange(bs, device=self.device) < m
+                committed = base_n + off
+                if use_router and committed >= 4 * r_size and bi >= next_router_refresh:
+                    rng_r = np.random.default_rng(0xD15C ^ committed)
+                    rids = np.sort(rng_r.choice(committed, size=r_size, replace=False))
+                    rids = torch.as_tensor(rids.astype(np.int32), device=self.device)
+                    router = (self.packed.self_codes[rids.long()],
+                              self.packed.self_aux[rids.long()], rids)
+                    next_router_refresh = bi + 16
+                journal = graph_state.RowJournal()
+                try:
+                    with span("insert.batch", offset=off, rows=m):
+                        _, _, stats = insert_batch(
+                            self.state, schunk, chunk, row_valid, self._start(),
+                            self.config, self.packed,
+                            backedge_src_cap=self.build_backedge_src_cap,
+                            router=router, journal=journal,
+                        )
+                except BaseException as exc:
+                    # free the failed step's temporaries (its frames' locals)
+                    # before the restore, which runs under the same pressure
+                    traceback.clear_frames(exc.__traceback__)
+                    journal.restore()
+                    raise
+                journal.drop()
+                self.n = max(self.n, int(slots[off:off + m].max()) + 1)
+                done = off + m
+                cmps += stats.cmps.sum()
+                hops += stats.hops.sum()
+        except BaseException:
+            if done == 0:   # nothing committed: the start and router caches hold
+                (self._auto_start, self._router_ids, self._router_rows_cache,
+                 self._flat_bf16) = caches
+            raise
+        finally:
+            # the freed slots of the minibatches not committed go back
+            used = min(done, reuse)
+            self.n_deleted -= used
+            self.free_slots.extend(slots[used:reuse][::-1].tolist())
         self.last_insert_stats = {"cmps": int(cmps), "hops": int(hops)}
         return slots
 

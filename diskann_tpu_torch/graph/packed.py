@@ -31,6 +31,7 @@ import math
 import numpy as np
 import torch
 
+from diskann_tpu_torch.graph.state import RowJournal
 from diskann_tpu_torch.ops.distance import Metric
 from diskann_tpu_torch.ops.kernels.block_patch import block_patch
 
@@ -188,10 +189,15 @@ def encode(packed: PackedState, vecs: torch.Tensor, metric: Metric):
     return codes, (cs * cs).sum(-1)
 
 
-def set_self_codes(packed: PackedState, slot_ids, codes, aux) -> PackedState:
-    """Write codes/aux at `slot_ids` in place; negative slots are skipped."""
+def set_self_codes(packed: PackedState, slot_ids, codes, aux,
+                   journal: RowJournal | None = None) -> PackedState:
+    """Write codes/aux at `slot_ids` in place; negative slots are skipped.
+    ``journal`` keeps the rows first."""
     keep = slot_ids >= 0
     w = slot_ids[keep].long()
+    if journal is not None:
+        journal.save(packed.self_codes, w)
+        journal.save(packed.self_aux, w)
     packed.self_codes[w] = codes[keep]
     packed.self_aux[w] = aux[keep]
     return packed
@@ -226,9 +232,11 @@ def logical_rows(packed: PackedState) -> torch.Tensor:
     return packed.rows.view(-1, packed.nwr * 128)
 
 
-def refresh_rows(packed: PackedState, adjacency: torch.Tensor, rows) -> PackedState:
+def refresh_rows(packed: PackedState, adjacency: torch.Tensor, rows,
+                 journal: RowJournal | None = None) -> PackedState:
     """Rebuild whole fat rows for node ids `rows` from the current
-    adjacency, in place.  Ids outside [0, cap) write the dump row."""
+    adjacency, in place.  Ids outside [0, cap) write the dump row.
+    ``journal`` keeps the fat rows first."""
     cap, r_slack = adjacency.shape
     dp = packed.dp
     rp = packed.r_pack
@@ -250,6 +258,8 @@ def refresh_rows(packed: PackedState, adjacency: torch.Tensor, rows) -> PackedSt
     code_w = codes_to_words(packed.self_codes[code_idx]).reshape(t, rp * (dp // 4))
     fat[:, 2 * idw * 128 : 2 * idw * 128 + rp * (dp // 4)] = code_w
     w = torch.where((rows >= 0) & (rows < cap), rows, cap)
+    if journal is not None:
+        journal.save(logical_rows(packed), w)
     nblk = nwr // 8
     gidx = (w[:, None] * nblk + torch.arange(nblk, device=w.device)[None, :])
     block_patch(packed.rows, gidx.reshape(-1).to(torch.int32),
@@ -257,9 +267,12 @@ def refresh_rows(packed: PackedState, adjacency: torch.Tensor, rows) -> PackedSt
     return packed
 
 
-def append_edges(packed: PackedState, tgt, slot, src, ok) -> PackedState:
+def append_edges(packed: PackedState, tgt, slot, src, ok,
+                 journal: RowJournal | None = None) -> PackedState:
     """Splice src's (id, aux, code) into the (tgt, slot) cells, in place —
     the backedge fast path.  Edges with ``ok`` False write the dump row.
+    ``journal`` keeps the words of those cells first (a target's whole
+    fat row would cost ~nwr*128 words for the 2 + dp/4 it changes).
 
     The flat word offset of slot s in row t (dpw = dp/4 divides 128):
 
@@ -278,10 +291,15 @@ def append_edges(packed: PackedState, tgt, slot, src, ok) -> PackedState:
     tgt_s = torch.where(ok, tgt, cap).long()                   # cap = dump row
     base = tgt_s * (nwr * 128)
     flat = packed.rows.view(-1)
+    cbase = base + 2 * idw * 128 + slot_s * dpw
+    if journal is not None:
+        journal.save(flat, base + slot_s)
+        journal.save(flat, base + idw * 128 + slot_s)
+        # a code's dpw words start at a multiple of dpw (dpw divides 128)
+        journal.save(flat.view(-1, dpw), cbase // dpw)
     flat[base + slot_s] = src.to(torch.int32)
     flat[base + idw * 128 + slot_s] = aux_w
     kw = torch.arange(dpw, device=base.device)[None, :]
-    cbase = base + 2 * idw * 128 + slot_s * dpw
     flat[cbase[:, None] + kw] = code_w
     return packed
 

@@ -12,7 +12,10 @@ Fixed-capacity dense tensors on one device:
 
 Unlike the reference's functional pytree, the tensors are updated in place:
 the reference donated these buffers to its jitted updates for the same
-reason, to keep one copy of each multi-GB table.
+reason, to keep one copy of each multi-GB table.  Where the reference
+commits a batch by rebinding the pytree it returns, so that a batch that
+raises commits nothing, the port writes through a `RowJournal` that keeps
+what each write overwrote and puts it back when the batch fails.
 """
 
 from __future__ import annotations
@@ -134,13 +137,58 @@ def grow(state: GraphArrays, new_capacity: int) -> GraphArrays:
     )
 
 
-def set_vectors(state: GraphArrays, slot_ids, vecs, row_valid=None) -> GraphArrays:
+class RowJournal:
+    """The rows an in-place batch overwrites, kept so that a batch that
+    fails part-way can be undone bitwise.
+
+    Each writer calls `save` just before it writes, with the rows it is
+    about to write; `restore` writes the saved rows back, the latest
+    first, so a row saved twice ends as it was before the first write.
+    Saves and restores are ordinary ops on the tensors' device and
+    stream, queued after every write made so far, so no host copy and no
+    wait is involved.  A sticky CUDA error (an illegal address, a
+    device-side assert) poisons the context: no restore can run then.
+    ``nbytes`` counts the device bytes held (copies and row indices)."""
+
+    def __init__(self):
+        self._saved: list = []
+        self.nbytes = 0
+
+    def save(self, tensor: torch.Tensor, rows: torch.Tensor | None = None) -> None:
+        """Keep ``tensor[rows]`` (``rows``: int64 indices into dim 0,
+        repeats allowed; a view of a larger tensor works, the restore
+        writes through it), or the whole of a small ``tensor`` when
+        ``rows`` is None."""
+        copy = tensor.clone() if rows is None else tensor[rows]
+        self._saved.append((tensor, rows, copy))
+        self.nbytes += copy.numel() * copy.element_size()
+        if rows is not None:
+            self.nbytes += rows.numel() * rows.element_size()
+
+    def restore(self) -> None:
+        """Write every saved row back, the latest save first, and forget
+        them."""
+        for tensor, rows, copy in reversed(self._saved):
+            if rows is None:
+                tensor.copy_(copy)
+            else:
+                tensor.index_copy_(0, rows, copy)
+        self._saved.clear()
+
+    def drop(self) -> None:
+        """Forget the saved rows: the batch committed."""
+        self._saved.clear()
+
+
+def set_vectors(state: GraphArrays, slot_ids, vecs, row_valid=None,
+                journal: RowJournal | None = None) -> GraphArrays:
     """Write a batch of vectors at ``slot_ids`` in place (phase 1 of
     multi_insert).  Rows masked out by ``row_valid`` are not written: the
     reference aims them at index ``cap`` and lets the scatter drop them,
     which a torch scatter would refuse, so they are filtered here.  The
     rows are cast to the stored dtype first; the norms and the running sum
-    are taken from the cast values, in float32."""
+    are taken from the cast values, in float32.  ``journal`` keeps the
+    rows and the sum first."""
     vecs = to_stored(vecs, state.vectors.dtype)
     if row_valid is None:
         row_valid = torch.ones(vecs.shape[0], dtype=torch.bool,
@@ -148,6 +196,10 @@ def set_vectors(state: GraphArrays, slot_ids, vecs, row_valid=None) -> GraphArra
     vecs = torch.where(row_valid[:, None], vecs, 0)
     keep = row_valid & (slot_ids >= 0) & (slot_ids < state.capacity)
     w = slot_ids[keep].long()
+    if journal is not None:
+        for t in (state.vectors, state.sq_norms, state.valid):
+            journal.save(t, w)
+        journal.save(state.vec_sum)
     state.vectors[w] = vecs[keep]
     state.sq_norms[w] = squared_norms(vecs[keep])
     state.valid[w] = True

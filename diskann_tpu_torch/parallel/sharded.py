@@ -52,12 +52,18 @@
   membership test of its ``ext`` column (no host id map), repairs the
   referencing rows, and hands the slots to a freelist derived from
   ``~valid`` below the high-water mark.
+- An insert or delete call commits on every shard or on none, as the
+  reference's one ``shard_map`` program does (`_all_or_none`): each
+  shard writes through its own `RowJournal`, and when any shard raises,
+  `_fan_out` closes the others and every shard's journal is restored on
+  its device, the host bookkeeping with it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import inspect
+import traceback
 
 import numpy as np
 import torch
@@ -76,6 +82,9 @@ from diskann_tpu_torch.ops.topk import smallest_k, sort_lex, sort_with
 
 # rows repaired or refreshed per call in a delete (the reference's chunk)
 _DELETE_CHUNK = 4096
+# fat rows rebuilt per call when a failed delete is undone: small enough
+# to fit under the memory pressure that may have caused the failure
+_UNDO_ROWS = 1024
 # fat rows rebuilt per call in attach_packed
 _ATTACH_ROWS = 65536
 # queries walked at once (each query's walk is independent)
@@ -261,6 +270,30 @@ class ShardedGraphIndex:
     def _fan_out(self, fn) -> list:
         return _fan_out(self.devices, fn)
 
+    def _all_or_none(self, step, undo_packed=None) -> list:
+        """`_fan_out` of ``step(s, journal)``, each shard writing through
+        its own `RowJournal`.  If any shard raises, every shard's journal
+        is restored under its device (shards that had finished too), then
+        ``undo_packed(s)`` runs on each, and the host bookkeeping (``ns``,
+        ``starts``, ``next_ext``, ``n_deleted``, ``_free_total``) is put
+        back before the exception is re-raised."""
+        journals = [graph_state.RowJournal() for _ in self.devices]
+        host = (self.ns.copy(), list(self.starts), self.next_ext, self.n_deleted,
+                self._free_total)
+        try:
+            return self._fan_out(lambda s: step(s, journals[s]))
+        except BaseException as exc:
+            # free the failed steps' temporaries before the restore
+            traceback.clear_frames(exc.__traceback__)
+            for s, (dev, journal) in enumerate(zip(self.devices, journals)):
+                with _on(dev):
+                    journal.restore()
+                    if undo_packed is not None:
+                        undo_packed(s)
+            (self.ns, self.starts, self.next_ext, self.n_deleted,
+             self._free_total) = host
+            raise
+
     # ------------------------------------------------------------------ grow
     def grow(self, new_cap_per_shard: int) -> None:
         """Grow every shard's capacity (pad its arrays); an attached packed
@@ -294,7 +327,9 @@ class ShardedGraphIndex:
         Returns the external ids assigned to the rows.  on_overflow:
         "grow" at least doubles shard capacity; "error" raises — never
         silent loss.  Each shard's rows go from the host to its device and
-        commit there as one batch (`insert_batch`), freed slots first."""
+        commit there as one batch (`insert_batch`), freed slots first.
+        The call commits on every shard or on none (`_all_or_none`); a
+        capacity already grown stays."""
         vectors = np.asarray(vectors, np.float32)
         m = vectors.shape[0]
         if assignments is None:
@@ -327,19 +362,20 @@ class ShardedGraphIndex:
             bounds = np.concatenate([[0], np.cumsum(counts)])
             rext = ext_ids.astype(np.int32)
 
-            def insert(s):
+            def insert(s, journal):
                 rows = pair_j[bounds[s]:bounds[s + 1]]
                 if len(rows):
                     dev = self.devices[s]
                     return self._insert_steps(s, torch.from_numpy(vectors[rows]).to(dev),
-                                              torch.from_numpy(rext[rows]).to(dev))
+                                              torch.from_numpy(rext[rows]).to(dev), journal)
 
-            self._fan_out(insert)
+            self._all_or_none(insert)
         self.next_ext += m
         self._labels_stale = True
         return ext_ids
 
-    def _insert_steps(self, s: int, vecs: torch.Tensor, rext: torch.Tensor):
+    def _insert_steps(self, s: int, vecs: torch.Tensor, rext: torch.Tensor,
+                      journal: graph_state.RowJournal):
         """Shard ``s``'s part of an insert, a stepping generator: freed
         slots first, then the high-water mark."""
         st = self.shard(s)
@@ -353,7 +389,9 @@ class ShardedGraphIndex:
         packed = self.packed[s] if self.packed is not None else None
         yield from insert_batch_steps(st, slots, vecs,
                                       torch.ones(m, dtype=torch.bool, device=dev),
-                                      self.starts[s], self.config, packed)
+                                      self.starts[s], self.config, packed,
+                                      journal=journal)
+        journal.save(self.ext[s], slots.long())
         self.ext[s][slots.long()] = rext
         self.ns[s] = n + m - take
         self.starts[s] = graph_state.medoid(st, int(self.ns[s]))[None]
@@ -365,32 +403,49 @@ class ShardedGraphIndex:
         referencing rows (prune repair, `patch_rows`), clears the deleted
         rows, refreshes an attached packed layout's dirty fat rows, and
         takes a new medoid start (the old one may be among the deleted).
-        Freed slots are recycled by later inserts."""
+        Freed slots are recycled by later inserts.
+
+        The call commits on every shard or on none (`_all_or_none`).  The
+        graph rows, liveness, sum and external ids come back bitwise from
+        the journals; the fat rows already refreshed are not journaled
+        (nearly every row of a large delete is one) but rebuilt from the
+        restored adjacency, which gives them back bitwise wherever they
+        matched their adjacency and the current codes (they do after
+        `attach_packed` and every update since, until a slot a row still
+        names, or slot 0, whose codes fill the empty slots, is reused)."""
         ext_ids = np.unique(np.asarray(ext_ids).ravel().astype(np.int32))
         if len(ext_ids) == 0:
             return
         dead = _per_device(self.devices, torch.from_numpy(ext_ids))
+        refreshed = [[] for _ in self.devices]      # fat rows rewritten, per shard
 
-        def delete(s):
+        def delete(s, journal):
             st = self.shard(s)
             hit = torch.isin(self.ext[s], dead[self.devices[s]]) & st.valid
-            marked = delete_mod.mark_deleted(st, torch.nonzero(hit).squeeze(1))
+            hit_rows = torch.nonzero(hit).squeeze(1)
+            marked = delete_mod.mark_deleted(st, hit_rows, journal=journal)
+            journal.save(self.ext[s], hit_rows)
             self.ext[s].masked_fill_(hit, -1)
             aff = delete_mod.rows_referencing_deleted(st)
             rows = torch.nonzero(aff).squeeze(1)
             dirty = torch.nonzero(aff | hit).squeeze(1) if self.packed is not None else None
             for off in range(0, rows.shape[0], _DELETE_CHUNK):
                 yield from delete_mod.patch_rows_steps(st, rows[off:off + _DELETE_CHUNK],
-                                                       self.config)
-            delete_mod.drop_deleted_rows(st)
+                                                       self.config, journal=journal)
+            delete_mod.drop_deleted_rows(st, journal=journal)
             if dirty is not None:
                 for off in range(0, dirty.shape[0], _DELETE_CHUNK):
-                    packed_mod.refresh_rows(self.packed[s], st.adjacency,
-                                            dirty[off:off + _DELETE_CHUNK])
+                    refreshed[s].append(dirty[off:off + _DELETE_CHUNK])
+                    packed_mod.refresh_rows(self.packed[s], st.adjacency, refreshed[s][-1])
             self.starts[s] = graph_state.medoid(st, int(self.ns[s]))[None]
             return int(marked.shape[0])
 
-        self._free_total += sum(self._fan_out(delete))
+        def undo_packed(s):
+            for rows in refreshed[s]:
+                for part in rows.split(_UNDO_ROWS):
+                    packed_mod.refresh_rows(self.packed[s], self.arrays[s].adjacency, part)
+
+        self._free_total += sum(self._all_or_none(delete, undo_packed))
         self.n_deleted += len(ext_ids)
 
     # ---------------------------------------------------------------- packed

@@ -54,15 +54,27 @@ class VectorSet:
             return False  # reference semantics: element ids are unique
         self._pending.append((name, np.asarray(vector, np.float32), attribute))
         if len(self._pending) >= self.index.insert_batch_size:
-            self._flush()
+            try:
+                self._flush()
+            except BaseException:
+                # this add is answered with the error: drop it, keep the rest
+                self._pending.pop()
+                raise
         return True
 
     def _flush(self) -> None:
-        """Commit buffered VADDs as one insert minibatch."""
+        """Commit buffered VADDs as one insert minibatch.  An insert that
+        raises commits nothing (`GraphIndex.insert`), so the buffered
+        VADDs stay buffered for the next flush (the reference drops
+        them)."""
         if not self._pending:
             return
         pend, self._pending = self._pending, []
-        ids = self.index.insert(np.stack([v for _, v, _ in pend]))
+        try:
+            ids = self.index.insert(np.stack([v for _, v, _ in pend]))
+        except BaseException:
+            self._pending = pend
+            raise
         for (name, _, attr), iid in zip(pend, ids):
             self._bind(name, int(iid), attr)
         if self.quant_mode is not None:

@@ -3,11 +3,15 @@ of `tests/test_service.py`, each one op sequence run against both
 packages on the same seeded vectors.  Results on the flat route (auto
 below the crossover) and on the filtered scan carry equal names; the graph
 walks (paged, quantized) >= 99% equal names, as the two packages' float32
-sums may swap a near-tie; the backfilled code tables equal JAX's."""
+sums may swap a near-tie; the backfilled code tables equal JAX's.  A flush
+whose insert fails keeps the buffered VADDs in the port (the JAX
+package's drops them)."""
 
 import numpy as np
 import pytest
+import torch
 
+from diskann_tpu_torch.graph import build as tbuild
 from diskann_tpu_torch.service import VectorService
 from torch_port_helpers import n
 
@@ -157,3 +161,67 @@ def test_service_device():
     with pytest.raises(KeyError):
         svc.create_index("a", 4)
     assert svc.create_index("b", 4, device="cpu").index.state.vectors.device.type == "cpu"
+
+
+def _fail_next_prune(monkeypatch):
+    """The next insert batch raises out of device memory in its first
+    prune; later ones run."""
+    orig = tbuild.chunked_robust_prune_steps
+    left = [1]
+
+    def failing(*a, **k):
+        if left[0]:
+            left[0] -= 1
+            raise torch.cuda.OutOfMemoryError("injected")
+        return (yield from orig(*a, **k))
+
+    monkeypatch.setattr(tbuild, "chunked_robust_prune_steps", failing)
+
+
+def test_failed_flush_keeps_the_buffered_writes(monkeypatch):
+    rng = np.random.default_rng(7)
+    names = [f"v{i}" for i in range(104)]
+    vecs = rng.standard_normal((104, 8)).astype(np.float32)
+    sets = {}
+    for key, svc in (_services() | {"twin": VectorService(device="cpu")}).items():
+        vs = sets[key] = svc.create_index("f", 8, max_degree=8, l_build=16,
+                                          insert_batch_size=64)
+        vs.add_batch(names[:24], vecs[:24])
+        for name, v in zip(names[24:40], vecs[24:40]):
+            assert vs.add(name, v)                  # 16 buffered
+    vs, twin, jvs = sets["port"], sets["twin"], sets["jax"]
+    q = vecs[30] + 0.001
+    assert vs.card() == 40
+
+    # a read's flush fails: VCARD and VSIM answer as before, and the next
+    # flush commits every buffered element (the twin never failed)
+    with monkeypatch.context() as mp:
+        _fail_next_prune(mp)
+        with pytest.raises(torch.cuda.OutOfMemoryError):
+            vs.search_vector(q, k=5, l_search=16)
+    assert vs.card() == 40 and [e[0] for e in vs._pending] == names[24:40]
+    assert vs.search_vector(q, k=5, l_search=16) == twin.search_vector(q, k=5, l_search=16)
+    assert set(names[:40]) <= vs.name_to_id.keys()
+
+    # an add whose flush fails is answered with the error and not kept;
+    # the adds buffered before it stay
+    for name, v in zip(names[40:103], vecs[40:103]):
+        assert vs.add(name, v) and twin.add(name, v)    # 63 buffered
+    with monkeypatch.context() as mp:
+        _fail_next_prune(mp)
+        with pytest.raises(torch.cuda.OutOfMemoryError):
+            vs.add(names[103], vecs[103])               # the 64th: a flush
+    assert vs.card() == 103 and len(vs._pending) == 63
+    assert vs.add(names[103], vecs[103]) and twin.add(names[103], vecs[103])
+    assert vs.card() == 104 and not vs._pending
+    assert vs.search_vector(q, k=5, l_search=16) == twin.search_vector(q, k=5, l_search=16)
+    np.testing.assert_array_equal(n(vs.index.state.adjacency), n(twin.index.state.adjacency))
+
+    # the reference fault: the JAX package's flush empties its buffer first
+    def fail(*a, **k):
+        raise MemoryError("injected")
+
+    monkeypatch.setattr(jvs.index, "insert", fail)
+    with pytest.raises(MemoryError):
+        jvs.search_vector(q, k=5, l_search=16)
+    assert jvs.card() == 24

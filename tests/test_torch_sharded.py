@@ -29,7 +29,6 @@ package's (one shard per device of the 8-device CPU mesh that
   several cards is held only by `chip_smoke.py`'s [sharded] phase.
 """
 
-import dataclasses
 import json
 
 import jax
@@ -50,7 +49,7 @@ from diskann_tpu_torch.parallel.sharded import _fan_out
 from diskann_tpu_torch.parallel.partition import (
     estimate_build_ram_bytes, kmeans_partition, shard_lists,
 )
-from torch_port_helpers import CPU, PACKED_FIELDS
+from torch_port_helpers import CPU, jax_sharded_arrays
 
 S = 4          # the port's own indexes
 CFG = dict(max_degree=16, l_build=32)
@@ -79,25 +78,6 @@ def _clustered(rng, n, d, nc=24, sigma=0.1, scale=1.0):
 def _queries(rng, centers, nq, sigma=0.1):
     return centers[rng.integers(0, len(centers), size=nq)] + sigma * rng.standard_normal(
         (nq, centers.shape[1])).astype(np.float32)
-
-
-def jax_sharded_arrays(j) -> dict:
-    """Keyword arguments of `sharded_index_from_arrays` for a JAX index."""
-    cfg = dataclasses.asdict(j.config)
-    cfg["metric"] = j.config.metric.value
-    packed = None
-    if j.packed is not None:
-        packed = {f: np.asarray(getattr(j.packed, f)) for f in PACKED_FIELDS}
-        packed["r_pack"] = j.packed.r_pack
-    labels = None
-    if j.label_bits is not None:
-        labels = {"labels_per_ext": j._labels_per_ext, "vocab": j.label_vocab,
-                  "bits": np.asarray(j.label_bits)}
-    st = j.stacked
-    return dict(config=cfg, stacked={f: np.asarray(getattr(st, f)) for f in st._fields},
-                ext=np.asarray(j.ext), ns=np.asarray(j.ns), starts=np.asarray(j.starts),
-                next_ext=j.next_ext, n_deleted=j.n_deleted, free_total=j._free_total,
-                packed=packed, labels=labels, device=CPU)
 
 
 def _same(got, want, what, q):

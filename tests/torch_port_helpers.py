@@ -57,6 +57,25 @@ def jax_index_arrays(idx) -> dict:
                 **jax_attachments(idx))
 
 
+def jax_sharded_arrays(j) -> dict:
+    """Keyword arguments of `sharded_index_from_arrays` for a JAX index."""
+    cfg = dataclasses.asdict(j.config)
+    cfg["metric"] = j.config.metric.value
+    packed = None
+    if j.packed is not None:
+        packed = {f: np.asarray(getattr(j.packed, f)) for f in PACKED_FIELDS}
+        packed["r_pack"] = j.packed.r_pack
+    labels = None
+    if j.label_bits is not None:
+        labels = {"labels_per_ext": j._labels_per_ext, "vocab": j.label_vocab,
+                  "bits": np.asarray(j.label_bits)}
+    st = j.stacked
+    return dict(config=cfg, stacked={f: np.asarray(getattr(st, f)) for f in st._fields},
+                ext=np.asarray(j.ext), ns=np.asarray(j.ns), starts=np.asarray(j.starts),
+                next_ext=j.next_ext, n_deleted=j.n_deleted, free_total=j._free_total,
+                packed=packed, labels=labels, device=CPU)
+
+
 def jax_attachments(idx) -> dict:
     """The quantized attachments of a JAX index, as the keyword arguments
     `pq`, `sq`, `minmax` and `spherical` of `graph_index_from_arrays`."""
