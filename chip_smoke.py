@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA card.
 
     python3 chip_smoke.py [--n 1000000]
-        [--only kernels|sharded|sharded-trace|sharded6m|build|rollback]
+        [--only kernels|sharded|sharded-trace|sharded6m|build|delete|rollback]
 
 Phases, each printing one line:
 
@@ -168,8 +168,28 @@ Phases, each printing one line:
    [sharded] layout at 100k: an insert failing in shard 1's walk, a
    delete failing in shard 1's repair and in its second packed refresh,
    each leaving every shard and the bookkeeping bitwise as before; the
-   retries bitwise a copy that never failed.  The main build also
-   reports its `max_memory_allocated` and each batch's journal bytes.
+   retries bitwise a copy that never failed.  (d) Deletes and
+   consolidations that fail part-way commit nothing: a copy of the 1M
+   main index deletes 5% (50,000 ids over the whole index) with the
+   stream's settings (scan, fill, max_dead=8) and with the default (scan,
+   prune), uncapped (its wall, its `max_memory_allocated` above the
+   memory in use and its journal's bytes printed), then another copy
+   takes the same delete under caps of the memory in use plus half and
+   0.7 of that peak and, with the stream's settings, of the memory in
+   use plus 64 MiB set from the start of its last repair batch and of its
+   last refresh chunk (the undo runs under the same cap): each must
+   raise a real `torch.cuda.OutOfMemoryError`
+   (the raising function logged) and leave every fingerprint, counter,
+   the freelist, the start, the delete's stats and the L=24 ids as
+   before; uncapped, the delete must then commit, free exactly its ids
+   with no live row naming one, and equal the first copy's
+   fingerprints.  On the 100k index of (b), a 5% delete (scan, fill)
+   fails once at the mark, discovery, the first and the last repair
+   batch, the drop and the first and the last packed refresh chunk, and
+   a consolidate after a one_hop delete at its last refresh chunk: each
+   bitwise as before, each retry bitwise a copy that never failed, K2
+   launched inside the failing calls.  The main build also reports its
+   `max_memory_allocated` and each batch's journal bytes.
 
 Phase 4 also builds a packed index of 20k 8-d points (dp=8) and attaches
 dp=256 to 2k x 256-d data, each searched packed on the card and on its CPU
@@ -208,7 +228,10 @@ on every card.  Every timed span drains every card on both ends.
 phase 8's kernel times alone; `--only build` the main path's data and
 packed build alone (its wall, `max_memory_allocated` and journal bytes;
 run from another checkout's root to measure that tree's build); `--only
-rollback` phases 1-3, 5 and 20; `--only sharded` runs phases 1-3, the
+delete` that build re-attached at dp=128 and (d)'s 5% delete on fresh
+copies, twice with each setting (wall, `max_memory_allocated`, journal
+bytes; from another checkout's root it measures that tree's delete);
+`--only rollback` phases 1-3, 5 and 20; `--only sharded` runs phases 1-3, the
 kernel checks on every card and [sharded] alone; `--only sharded-trace` builds phase 19's index on card 0,
 traces one insert call and one packed search there, loads it onto every
 card and traces both again; `--only sharded6m` needs four cards (it
@@ -351,6 +374,17 @@ ROLLBACK_PEAK_SHARES = (0.5, 0.7)
 ROLLBACK_N, ROLLBACK_DELETE, ROLLBACK_CORRUPT = 100_000, 5_000, 1_000
 # rows of the insert that fails (the main path's batch)
 ROLLBACK_BATCH = 8192
+# [rollback] (d) and `--only delete`: the share of the index a delete
+# removes (the stream's 5%), its settings (the stream's, and the default),
+# and the deletes a setting takes in `--only delete`, each on a fresh copy
+ROLLBACK_DEL_FRAC = 0.05
+DELETE_SETTINGS = {"fill": dict(method="scan", repair="fill", max_dead=8),
+                   "prune": dict(method="scan", repair="prune")}
+DELETE_REPS = 2
+# ... and the headroom of (d)'s caps set from the start of the stream
+# setting's last repair batch and last refresh chunk (MiB above the memory
+# in use then): less than either step's own temporaries
+ROLLBACK_LATE_MIB = 64
 # the H100 SXM's published peaks (NVIDIA data sheet): HBM bytes and dense
 # int8 operations per millisecond
 HBM_BYTES_PER_MS = 3.35e12 / 1e3
@@ -3842,7 +3876,9 @@ def run_rollback_points(device, k1, k2) -> dict:
         raise RuntimeError(f"[rollback] a kernel never ran in the failing batches: {total}")
     out["failing_launches"] = total
     out["corrupt"] = check_corrupt_adjacency(base, xd[:ROLLBACK_N], k1)
-    del base, twin
+    del twin
+    out["delete_points"] = run_rollback_delete_points(base, k1, k2)
+    del base
     torch.cuda.empty_cache()
     return out
 
@@ -3960,6 +3996,308 @@ def run_rollback_sharded(device, k1, k2) -> dict:
     return out
 
 
+def delete_ids(n: int):
+    """The ids [rollback] (d) and `--only delete` remove: ROLLBACK_DEL_FRAC
+    of ``n``, drawn over the whole index, ascending."""
+    import numpy as np
+
+    rng = np.random.default_rng(6)
+    return np.sort(rng.choice(n, int(ROLLBACK_DEL_FRAC * n), replace=False))
+
+
+def measure_delete(torch, idx, ids, setting: dict) -> dict:
+    """One ``idx.delete(ids, **setting)``: its wall seconds (the device
+    drained on both ends), its `max_memory_allocated` above the memory
+    allocated before it, its journal's bytes (None for a package whose
+    delete keeps none) and its affected rows."""
+    device = idx.device
+    torch.cuda.empty_cache()
+    in_use = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    with journal_sizes() as sizes:
+        _, wall = _timed(torch, device, lambda: idx.delete(ids, **setting))
+    return {"wall_s": wall, "peak_bytes": torch.cuda.max_memory_allocated(device) - in_use,
+            "journal_bytes": sizes[0] if sizes else None,
+            "affected": idx.last_delete_stats["affected"]}
+
+
+def check_deleted(torch, idx, ids, what: str) -> None:
+    """After a committed delete of ``ids`` (all live before it): every one
+    freed once and counted, none live, and no live row naming one."""
+    from diskann_tpu_torch.graph import delete as delete_mod
+
+    freed = idx.free_slots[-len(ids):]
+    dead = torch.as_tensor(ids, device=idx.device)
+    dangling = int(delete_mod.rows_referencing_deleted(idx.state).sum())
+    if (sorted(freed) != sorted(int(i) for i in ids)
+            or idx.last_delete_stats["deleted"] != len(ids)
+            or bool(idx.state.valid[dead].any()) or dangling):
+        raise RuntimeError(f"{what}: the delete did not free exactly its ids "
+                           f"({dangling} live rows name a deleted node)")
+
+
+def counting(calls: list):
+    """A maker for `failing`: the call runs, and ``calls[0]`` counts it."""
+    def make(orig):
+        def call(*a, **k):
+            calls[0] += 1
+            return orig(*a, **k)
+        return call
+    return make
+
+
+@contextlib.contextmanager
+def memory_cap(torch, device, headroom_mib: int):
+    """Cached blocks released, then the device memory capped at what is
+    allocated plus ``headroom_mib`` MiB, for the block.  Mid-call the
+    cached segments that live blocks pin stay reserved above the cap:
+    what their free space cannot serve fails."""
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(device).total_memory
+    in_use = torch.cuda.memory_allocated(device)
+    torch.cuda.set_per_process_memory_fraction((in_use + (headroom_mib << 20)) / total, device)
+    try:
+        yield in_use
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, device)
+
+
+def capped_from(torch, device, nth: int, headroom_mib: int, stack):
+    """A maker for `failing`: just before the ``nth`` call, `memory_cap`
+    enters ``stack`` (an `ExitStack` that outlives the failing call)."""
+    def make(orig):
+        calls = [0]
+
+        def call(*a, **k):
+            calls[0] += 1
+            if calls[0] == nth:
+                stack.enter_context(memory_cap(torch, device, headroom_mib))
+            return orig(*a, **k)
+        return call
+    return make
+
+
+def run_rollback_delete(idx, qd, k1, k2) -> dict:
+    """[rollback] (d): real out-of-memory errors in a 5% delete of the main
+    path's 1M index.  For each of DELETE_SETTINGS, a copy deletes
+    `delete_ids` uncapped first (its wall, peak above the memory in use
+    and journal bytes measured, its repair batches and refresh chunks
+    counted, its fingerprints kept); another copy takes the same delete
+    under device-memory caps of the memory in use plus
+    ROLLBACK_PEAK_SHARES of that peak, and, for the stream's setting,
+    capped at the memory in use plus ROLLBACK_LATE_MIB from the start of
+    its last repair batch and of its last refresh chunk (the journal
+    nearly full, the undo under the same cap): each must raise a real
+    `torch.cuda.OutOfMemoryError` (the port's function whose frame raised
+    is logged) and leave every state and packed tensor's `fingerprint`,
+    the counters, the freelist, the start and ``last_delete_stats`` as
+    before, and the L=24 ids unchanged.  Then the delete runs uncapped:
+    it must commit, free exactly its ids with no live row naming one, and
+    equal the first copy's fingerprints."""
+    import numpy as np
+    import torch
+
+    from diskann_tpu_torch.graph import delete as delete_mod
+    from diskann_tpu_torch.graph import packed as packed_mod
+
+    device = qd.device
+    kw = dict(l_search=24, beam_width=4, mode="packed", rerank_l=12, max_hops=6)
+    doomed = delete_ids(idx.n)
+    out = {"deleted": len(doomed)}
+    for name, setting in DELETE_SETTINGS.items():
+        repair_fn = {"fill": "fill_rows", "prune": "patch_rows"}[setting["repair"]]
+        probe = clone_index(idx)
+        repairs, refreshes = [0], [0]
+        with failing(delete_mod, repair_fn, counting(repairs)), \
+                failing(packed_mod, "refresh_rows", counting(refreshes)):
+            clean = measure_delete(torch, probe, doomed, setting)
+        done = fingerprint(torch, index_tensors(probe)), index_host(probe)
+        del probe
+        twin = clone_index(idx)
+        ids0 = twin.search(qd, K, **kw)[1]
+        fp0, host0 = fingerprint(torch, index_tensors(twin)), index_host(twin)
+        stats0 = twin.last_delete_stats
+        res = {"clean": clean, "repair_batches": repairs[0], "refresh_chunks": refreshes[0],
+               "caps": []}
+        log(f"[rollback] (d) delete {len(doomed)} of {idx.n} ({name}: {setting}) on a copy "
+            f"of the main index: {clean['wall_s']:.2f}s, peak "
+            f"{clean['peak_bytes'] / 2**20:.1f} MiB above the memory in use, journal "
+            f"{(clean['journal_bytes'] or 0) / 2**20:.1f} MiB, affected rows "
+            f"{clean['affected']}, {repairs[0]} repair batches, {refreshes[0]} refresh "
+            f"chunks")
+        caps = [(f"under in use + {mib} MiB",
+                 lambda stack, mib=mib: stack.enter_context(memory_cap(torch, device, mib)))
+                for mib in (int(share * clean["peak_bytes"]) >> 20
+                            for share in ROLLBACK_PEAK_SHARES)]
+        if name == "fill":
+            for what, module, fn, nth in (("repair batch", delete_mod, repair_fn, repairs[0]),
+                                          ("refresh chunk", packed_mod, "refresh_rows",
+                                           refreshes[0])):
+                caps.append((f"capped at in use + {ROLLBACK_LATE_MIB} MiB from its last {what} "
+                             f"(call {nth})",
+                             lambda stack, module=module, fn=fn, nth=nth: stack.enter_context(
+                                 failing(module, fn, capped_from(torch, device, nth,
+                                                                 ROLLBACK_LATE_MIB, stack)))))
+        for what, enter in caps:
+            take_launches(k1, k2)
+            with contextlib.ExitStack() as stack:
+                enter(stack)
+                try:
+                    twin.delete(doomed, **setting)
+                except torch.cuda.OutOfMemoryError as exc:
+                    where = raised_in(exc)
+                else:
+                    raise RuntimeError(f"[rollback] (d) the {name} delete {what}: no "
+                                       f"out-of-memory error")
+            launches = take_launches(k1, k2)
+            same = (fingerprint(torch, index_tensors(twin)) == fp0
+                    and index_host(twin) == host0 and twin.last_delete_stats == stats0)
+            log(f"[rollback] (d) {name} delete {what}: out of memory in {where}; kernel "
+                f"launches in the call and its undo {launches}; fingerprints, host fields "
+                f"and stats as before: {same}")
+            if not same:
+                raise RuntimeError(f"[rollback] (d) the failed {name} delete {what} changed "
+                                   f"the index")
+            res["caps"].append({"cap": what, "raised_in": where, "launches": launches})
+        torch.cuda.empty_cache()
+        if not np.array_equal(twin.search(qd, K, **kw)[1], ids0):
+            raise RuntimeError(f"[rollback] (d) the L=24 ids changed after the failed "
+                               f"{name} deletes")
+        res["retry"] = measure_delete(torch, twin, doomed, setting)
+        check_deleted(torch, twin, doomed, f"[rollback] (d) the {name} retry")
+        same = fingerprint(torch, index_tensors(twin)) == done[0] and index_host(twin) == done[1]
+        log(f"[rollback] (d) the same L=24 ids after the failures; the {name} delete then "
+            f"committed in {res['retry']['wall_s']:.2f}s (peak "
+            f"{res['retry']['peak_bytes'] / 2**20:.1f} MiB above the memory in use, journal "
+            f"{(res['retry']['journal_bytes'] or 0) / 2**20:.1f} MiB), freed its "
+            f"{len(doomed)} ids with no live row naming one; bitwise the copy that never "
+            f"failed: {same}")
+        if not same:
+            raise RuntimeError(f"[rollback] (d) the {name} retry differs from the clean copy")
+        out[name] = res
+        del twin
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_rollback_delete_points(base, k1, k2) -> dict:
+    """[rollback] (d) on the 100k index of (b): a delete of ROLLBACK_DEL_FRAC
+    of it with the stream's settings fails once at each of its writers
+    (the mark, discovery, the first and the last repair batch, the drop,
+    the first and the last packed refresh chunk), and a `consolidate`
+    after a one_hop delete fails at its last refresh chunk (injected by
+    replacing the module attribute for the call, after the call wrote):
+    each failed call must leave the index bitwise as it was, and its retry
+    bitwise equal to a copy that never failed (the dump row aside).  The
+    K2 launches inside the failing calls are counted."""
+    import torch
+
+    from diskann_tpu_torch.graph import delete as delete_mod
+    from diskann_tpu_torch.graph import packed as packed_mod
+
+    setting = DELETE_SETTINGS["fill"]
+    doomed = delete_ids(base.n)
+    nwr = base.packed.nwr
+
+    twin = clone_index(base)
+    repairs, refreshes = [0], [0]
+    with failing(delete_mod, "fill_rows", counting(repairs)), \
+            failing(packed_mod, "refresh_rows", counting(refreshes)):
+        twin.delete(doomed, **setting)
+    points = {"mark": (delete_mod, "mark_deleted", 1),
+              "discovery": (delete_mod, "rows_referencing_deleted", 1),
+              "repair_first": (delete_mod, "fill_rows", 1),
+              "repair_last": (delete_mod, "fill_rows", repairs[0]),
+              "drop": (delete_mod, "drop_deleted_rows", 1),
+              "refresh_first": (packed_mod, "refresh_rows", 1),
+              "refresh_last": (packed_mod, "refresh_rows", refreshes[0])}
+    want_t, want_h = index_tensors(base), index_host(base)
+    done_t, done_h = index_tensors(twin), index_host(twin)
+    out = {"deleted": len(doomed), "affected": twin.last_delete_stats["affected"],
+           "repair_batches": repairs[0], "refresh_chunks": refreshes[0], "points": {}}
+
+    def check(what, c, fn, module, name, nth, before, after) -> dict:
+        take_launches(k1, k2)
+        with failing(module, name, fail_after(torch, nth, False)):
+            expect_injected(torch, fn)
+        launches = take_launches(k1, k2)
+        bad = differing(torch, index_tensors(c), before[0])
+        same = not bad and index_host(c) == before[1]
+        fn()
+        bad_retry = differing(torch, index_tensors(c), after[0], nwr)
+        retry = not bad_retry and index_host(c) == after[1]
+        log(f"[rollback] (d) {what}: kernel launches in the failed call {launches}; "
+            f"bitwise as before {same} {bad}; retry bitwise the twin's {retry} {bad_retry}")
+        if not (same and retry):
+            raise RuntimeError(f"[rollback] (d) {what}: the index differs")
+        return launches
+
+    for point, (module, name, nth) in points.items():
+        c = clone_index(base)
+        out["points"][point] = check(f"delete failing at {point} (call {nth})", c,
+                                     lambda: c.delete(doomed, **setting), module, name, nth,
+                                     (want_t, want_h), (done_t, done_h))
+        del c
+    del twin
+    # consolidate after a one_hop delete (which leaves rows naming deleted
+    # nodes), failing at its last refresh chunk
+    c = clone_index(base)
+    c.delete(doomed, method="one_hop", repair="fill")
+    before = clone_index(c)
+    twin = clone_index(c)
+    chunks = [0]
+    with failing(packed_mod, "refresh_rows", counting(chunks)):
+        twin.consolidate()
+    out["points"]["consolidate"] = check(
+        f"consolidate failing at its last refresh chunk (call {chunks[0]})", c, c.consolidate,
+        packed_mod, "refresh_rows", chunks[0], (index_tensors(before), index_host(before)),
+        (index_tensors(twin), index_host(twin)))
+    total = sum(p["block_patch"] for p in out["points"].values())
+    out["failing_launches"] = {"fatrow_expand": sum(p["fatrow_expand"]
+                                                    for p in out["points"].values()),
+                               "block_patch": total}
+    log(f"[rollback] (d) {len(doomed)} of {base.n} deleted ({out['affected']} affected rows, "
+        f"{repairs[0]} repair batches, {refreshes[0]} refresh chunks): kernel launches "
+        f"inside the failing calls {out['failing_launches']}")
+    if total == 0:
+        raise RuntimeError("[rollback] (d) K2 never ran in the failing calls")
+    del c, before, twin
+    torch.cuda.empty_cache()
+    return out
+
+
+def only_delete(torch, device, n: int) -> int:
+    """`--only delete`: the main path's data, packed build and dp=128
+    re-attach, then [rollback] (d)'s 5% delete on fresh copies of that
+    index, DELETE_REPS times with each of DELETE_SETTINGS (alternating):
+    each one's wall, `max_memory_allocated` above the memory in use and
+    journal bytes (`measure_delete`).  From another checkout's root (the
+    package there, this script copied in) it measures that tree's delete,
+    whose package may keep no journal."""
+    from diskann_tpu_torch import GraphIndex
+    from diskann_tpu_torch.bench.harness import make_clustered
+
+    x, _ = make_clustered(0, n, NQ, D, n_clusters=4096, sigma=0.35)
+    xd = torch.from_numpy(x).to(device)
+    del x
+    idx = GraphIndex.build(xd, main_config(), insert_batch_size=8192, search_batch_size=NQ,
+                           build_mode="packed", packed_dp=64, build_backedge_src_cap=64)
+    del xd
+    idx.attach_packed(dp=128)
+    doomed = delete_ids(idx.n)
+    out = {"n": idx.n, "deleted": len(doomed), "runs": {k: [] for k in DELETE_SETTINGS}}
+    for _ in range(DELETE_REPS):
+        for name, setting in DELETE_SETTINGS.items():
+            c = clone_index(idx)
+            run = measure_delete(torch, c, doomed, setting)
+            check_deleted(torch, c, doomed, f"[delete] {name}")
+            del c
+            out["runs"][name].append(run)
+            log(f"[delete] {name} {setting}: {json.dumps(run)}")
+    log("[summary] " + json.dumps(out))
+    return 0
+
+
 def only_build(torch, device, n: int) -> int:
     """`--only build`: the main path's data and its packed build alone; prints
     the build's wall seconds, its `max_memory_allocated` and the bytes of
@@ -3994,12 +4332,12 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=1_000_000,
                     help="database size of the main path (default 1,000,000)")
     ap.add_argument("--only", choices=["kernels", "sharded", "sharded-trace", "sharded6m",
-                                       "build", "rollback"],
+                                       "build", "delete", "rollback"],
                     help="after the build and the kernel checks, run only this phase "
                          "and print its summary; no result line (kernels: the kernel "
                          "times of phase 8; sharded6m needs four cards; build: the "
-                         "main path's packed build alone; rollback: the main path, "
-                         "then [rollback])")
+                         "main path's packed build alone; delete: that build's 5% "
+                         "delete alone; rollback: the main path, then [rollback])")
     args = ap.parse_args(argv)
 
     import torch
@@ -4055,6 +4393,8 @@ def main(argv=None) -> int:
         return 0
     if args.only == "build":
         return only_build(torch, device, args.n)
+    if args.only == "delete":
+        return only_delete(torch, device, args.n)
     if args.only != "rollback":
         check_small_input(torch, device)
         check_small_tiered(torch, device)
@@ -4080,7 +4420,8 @@ def main(argv=None) -> int:
     # [rollback]: inserts and sharded calls that fail commit nothing
     rollback = {"main": run_rollback_main(idx, qd, k1, k2),
                 "points": run_rollback_points(device, k1, k2),
-                "sharded": run_rollback_sharded(device, k1, k2)}
+                "sharded": run_rollback_sharded(device, k1, k2),
+                "delete": run_rollback_delete(idx, qd, k1, k2)}
     take_launches(k1, k2)
     torch.cuda.empty_cache()
     lap("rollback")
@@ -4216,6 +4557,8 @@ def main(argv=None) -> int:
              **{f"{p}_launches": phase_launches[p]["fatrow_expand"] for p in phase_launches},
              "rollback_failing_launches":
                  rollback["points"]["failing_launches"]["fatrow_expand"],
+             "rollback_delete_failing_launches":
+                 rollback["points"]["delete_points"]["failing_launches"]["fatrow_expand"],
              "max_abs_err": max(k1_err, times["k1_err"]),
              "ms": k1t["ms"], "plain_ms": k1t["plain_ms"],
              "bound_ms": k1t["bound_ms"], "bound_by": k1t["bound_by"],
@@ -4237,6 +4580,8 @@ def main(argv=None) -> int:
              **{f"{p}_launches": phase_launches[p]["block_patch"] for p in phase_launches},
              "rollback_failing_launches":
                  rollback["points"]["failing_launches"]["block_patch"],
+             "rollback_delete_failing_launches":
+                 rollback["points"]["delete_points"]["failing_launches"]["block_patch"],
              "max_abs_err": max(k2_err, times["k2_err"]),
              "ms": k2t["ms"], "plain_ms": k2t["plain_ms"],
              "bound_ms": k2t["bound_ms"], "bound_by": k2t["bound_by"],

@@ -25,6 +25,12 @@ Every update is in place on the index's tensors.  Only ids that are live
 and not repeated in the request are deleted: they alone go on the
 freelist and count in ``n_deleted`` (the reference frees every requested
 id, so a repeated or already-deleted id is handed out twice later).
+
+A delete commits whole when its caller passes a `RowJournal` and a list
+for the refreshed fat rows (`GraphIndex.delete`, `consolidate`): every
+writer saves the rows it overwrites in the journal, and the fat rows,
+too many to journal (a 5% delete of a large index refreshes nearly every
+row), are rebuilt from the restored adjacency (`rebuild_refreshed`).
 """
 
 from __future__ import annotations
@@ -49,6 +55,12 @@ REPAIRS = ("prune", "fill")
 # entries tie and a stable sort leaves them in the ascending-id order of the
 # dedup sort before it; the reference's rows come out in that order too.
 _KEPT_SHIFT = 1e30
+
+# rows a repair batch and a packed refresh take at a time, by repair
+_PATCH_BATCH = {"fill": 4096, "prune": 1024}
+# rows a rebuild of refreshed fat rows takes at a time: it runs after a
+# failure, under the memory pressure that may have caused it
+_UNDO_ROWS = 1024
 
 
 def _dead(state: GraphArrays, ids: torch.Tensor) -> torch.Tensor:
@@ -207,6 +219,17 @@ def fill_rows(state: GraphArrays, rows, config: GraphConfig, *,
     return state
 
 
+def save_rows(journal: RowJournal | None, state: GraphArrays, rows: torch.Tensor) -> None:
+    """Keep the adjacency and degrees of ``rows`` (int64, in range) in
+    ``journal`` before the repair batches write them, once for the whole
+    call rather than batch by batch: a delete peaks in the discovery scan,
+    before the save, and one save costs two ops where a save per batch
+    costs two a batch."""
+    if journal is not None:
+        journal.save(state.adjacency, rows)
+        journal.save(state.degrees, rows)
+
+
 def drop_deleted_rows(state: GraphArrays, journal: RowJournal | None = None) -> GraphArrays:
     """Clear the adjacency rows of deleted nodes, in place.  ``journal``
     keeps the rows this changes first (those not already clear)."""
@@ -219,6 +242,30 @@ def drop_deleted_rows(state: GraphArrays, journal: RowJournal | None = None) -> 
     state.adjacency.masked_fill_(gone[:, None], -1)
     state.degrees.masked_fill_(gone, 0)
     return state
+
+
+def refresh_chunks(packed, adjacency: torch.Tensor, rows: torch.Tensor, chunk: int,
+                   refreshed: list | None = None) -> None:
+    """Rebuild the fat rows of ``rows`` from ``adjacency``, ``chunk`` rows
+    a `packed.refresh_rows` call.  Each chunk goes on ``refreshed`` before
+    it is written, for `rebuild_refreshed`."""
+    for off in range(0, rows.shape[0], chunk):
+        part = rows[off:off + chunk]
+        if refreshed is not None:
+            refreshed.append(part)
+        packed_mod.refresh_rows(packed, adjacency, part)
+
+
+def rebuild_refreshed(packed, adjacency: torch.Tensor, refreshed: list) -> None:
+    """The undo of the fat rows a failed call refreshed (the chunks
+    `refresh_chunks` put on ``refreshed``): rebuild them from
+    ``adjacency`` once the call's journal has restored it, `_UNDO_ROWS`
+    rows a call.  A row comes back bitwise wherever it matched its
+    adjacency and the current codes before the call, as it does from
+    `attach_packed` on until a slot that a row still names, or slot 0
+    (whose codes fill the empty slots), is reused."""
+    for rows in refreshed:
+        refresh_chunks(packed, adjacency, rows, _UNDO_ROWS)
 
 
 def _uniq(ids: torch.Tensor, cap: int) -> torch.Tensor:
@@ -269,7 +316,8 @@ def _visited_topk(index, ids, k_value: int, l_value: int | None):
 def inplace_delete(index, ids, *, method: str = "scan", k_value: int = 16,
                    l_value: int | None = None, patch_batch: int = 0,
                    repair: str = "prune", max_dead: int = 4,
-                   repl_cap: int = 16) -> dict:
+                   repl_cap: int = 16, journal: RowJournal | None = None,
+                   refreshed: list | None = None) -> dict:
     """Delete ``ids`` from a `GraphIndex` in place: mark, find the affected
     rows by ``method``, repair them ``patch_batch`` rows at a time (0 =
     4096 for "fill", 1024 for "prune"), clear the deleted rows, refresh
@@ -278,7 +326,10 @@ def inplace_delete(index, ids, *, method: str = "scan", k_value: int = 16,
 
     max_dead: dead entries per row that contribute replacements (every
     dead entry is dropped).  repl_cap: out-list entries per dead entry in
-    the fill repair."""
+    the fill repair.  ``journal`` keeps every row the mark, the repairs
+    (`save_rows`) and the drop overwrite; ``refreshed`` collects the
+    refreshed fat-row chunks (`rebuild_refreshed`).  The freelist and
+    ``n_deleted`` are written last, after every step that can fail."""
     if method not in METHODS:
         raise ValueError(f"unknown delete method {method!r}")
     if repair not in REPAIRS:
@@ -287,10 +338,10 @@ def inplace_delete(index, ids, *, method: str = "scan", k_value: int = 16,
         # raised before anything is marked, where the reference marks first
         raise ValueError("visited_topk needs the full vectors on the device")
     if patch_batch <= 0:
-        patch_batch = 4096 if repair == "fill" else 1024
+        patch_batch = _PATCH_BATCH[repair]
     st = index.state
     cap = st.capacity
-    ids = mark_deleted(st, ids)
+    ids = mark_deleted(st, ids, journal)
     if ids.numel() == 0:
         return {"deleted": 0, "affected": 0}
     # the deleted nodes' out-lists stay intact until drop_deleted_rows
@@ -309,19 +360,19 @@ def inplace_delete(index, ids, *, method: str = "scan", k_value: int = 16,
         cand, repl_lookup, repl_table = _visited_topk(index, ids, k_value, l_value)
         affected = _rows_that_reference_deleted(st, cand)
 
+    save_rows(journal, st, affected)
     kw = dict(max_dead=max_dead, repl_lookup=repl_lookup, repl_table=repl_table)
     if repair == "fill":
         kw["repl_cap"] = repl_cap
     repair_fn = fill_rows if repair == "fill" else patch_rows
     for off in range(0, affected.shape[0], patch_batch):
         repair_fn(st, affected[off:off + patch_batch], index.config, **kw)
-    drop_deleted_rows(st)
+    drop_deleted_rows(st, journal)
     if index.packed is not None:
         # patched rows changed their neighbourhoods, deleted rows were cleared
-        stale = torch.cat([affected, ids])
-        for off in range(0, stale.shape[0], patch_batch):
-            packed_mod.refresh_rows(index.packed, st.adjacency,
-                                    stale[off:off + patch_batch])
-    index.free_slots.extend(ids.tolist())
-    index.n_deleted += ids.shape[0]
-    return {"deleted": ids.shape[0], "affected": affected.shape[0]}
+        refresh_chunks(index.packed, st.adjacency, torch.cat([affected, ids]),
+                       patch_batch, refreshed)
+    freed = ids.tolist()
+    index.free_slots.extend(freed)
+    index.n_deleted += len(freed)
+    return {"deleted": len(freed), "affected": affected.shape[0]}

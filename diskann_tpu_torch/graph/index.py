@@ -1134,31 +1134,66 @@ class GraphIndex:
         search).  repair: "prune" RobustPrunes each patched row back to R;
         "fill" drops the dead entries and tops the row up with the nearest
         replacements, with no occlusion scan.  The counts of the call are
-        in ``last_delete_stats``."""
-        self.last_delete_stats = delete_mod.inplace_delete(
-            self, ids, method=method, k_value=k_value, l_value=l_value,
-            repair=repair, max_dead=max_dead, repl_cap=repl_cap,
-        )
+        in ``last_delete_stats``.  The call commits whole or not at all
+        (`_commit_whole`), so a retry after a failure deletes the same ids."""
+        self.last_delete_stats = self._commit_whole(
+            lambda journal, refreshed: delete_mod.inplace_delete(
+                self, ids, method=method, k_value=k_value, l_value=l_value,
+                repair=repair, max_dead=max_dead, repl_cap=repl_cap,
+                journal=journal, refreshed=refreshed))
         self._invalidate_start()
 
     def consolidate(self) -> None:
         """Cleanup sweep: prune-repair every live row that still refers to
         a deleted node (the approximate delete methods can leave some),
         clear the deleted nodes' rows, and refresh the packed rows of both
-        when a packed layout is attached."""
+        when a packed layout is attached.  Commits whole or not at all
+        (`_commit_whole`)."""
+        self._commit_whole(self._consolidate)
+
+    def _consolidate(self, journal: graph_state.RowJournal, refreshed: list) -> None:
         st = self.state
         affected = torch.nonzero(delete_mod.rows_referencing_deleted(st)).squeeze(1)
+        delete_mod.save_rows(journal, st, affected)
         for off in range(0, affected.shape[0], _CONSOLIDATE_ROWS):
             delete_mod.patch_rows(st, affected[off:off + _CONSOLIDATE_ROWS],
                                   self.config)
         # deleted rows that still hold entries (e.g. carried across)
         stale = torch.cat([affected, torch.nonzero(
             ~st.valid & (st.adjacency >= 0).any(1)).squeeze(1)])
-        delete_mod.drop_deleted_rows(st)
+        delete_mod.drop_deleted_rows(st, journal)
         if self.packed is not None:
-            for off in range(0, stale.shape[0], _CONSOLIDATE_ROWS):
-                packed_mod.refresh_rows(self.packed, st.adjacency,
-                                        stale[off:off + _CONSOLIDATE_ROWS])
+            delete_mod.refresh_chunks(self.packed, st.adjacency, stale,
+                                      _CONSOLIDATE_ROWS, refreshed)
+
+    def _commit_whole(self, call):
+        """``call(journal, refreshed)``, committed whole or not at all.
+        Its writers save what they overwrite in ``journal`` and put the
+        fat-row chunks they refresh on ``refreshed``.  On any exception
+        (out of device memory, a kernel build error, an interrupt) the
+        journal is restored, the refreshed fat rows are rebuilt from the
+        restored adjacency (`delete.rebuild_refreshed`), the freelist,
+        ``n_deleted`` and the start cache are put back, and the exception
+        is re-raised.  A sticky CUDA error leaves the device unusable and
+        nothing can be restored."""
+        journal = graph_state.RowJournal()
+        refreshed: list = []
+        # visited_topk's walk derives the start from the marked state
+        host = len(self.free_slots), self.n_deleted, self._auto_start
+        try:
+            out = call(journal, refreshed)
+        except BaseException as exc:
+            # free the failed step's temporaries (its frames' locals)
+            # before the undo, which runs under the same pressure
+            traceback.clear_frames(exc.__traceback__)
+            journal.restore()
+            if self.packed is not None:
+                delete_mod.rebuild_refreshed(self.packed, self.state.adjacency, refreshed)
+            del self.free_slots[host[0]:]
+            _, self.n_deleted, self._auto_start = host
+            raise
+        journal.drop()
+        return out
 
     # -------------------------------------------------------------- save/load
     def save(self, path: str) -> None:

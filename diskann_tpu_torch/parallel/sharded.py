@@ -82,9 +82,6 @@ from diskann_tpu_torch.ops.topk import smallest_k, sort_lex, sort_with
 
 # rows repaired or refreshed per call in a delete (the reference's chunk)
 _DELETE_CHUNK = 4096
-# fat rows rebuilt per call when a failed delete is undone: small enough
-# to fit under the memory pressure that may have caused the failure
-_UNDO_ROWS = 1024
 # fat rows rebuilt per call in attach_packed
 _ATTACH_ROWS = 65536
 # queries walked at once (each query's walk is independent)
@@ -434,16 +431,14 @@ class ShardedGraphIndex:
                                                        self.config, journal=journal)
             delete_mod.drop_deleted_rows(st, journal=journal)
             if dirty is not None:
-                for off in range(0, dirty.shape[0], _DELETE_CHUNK):
-                    refreshed[s].append(dirty[off:off + _DELETE_CHUNK])
-                    packed_mod.refresh_rows(self.packed[s], st.adjacency, refreshed[s][-1])
+                delete_mod.refresh_chunks(self.packed[s], st.adjacency, dirty,
+                                          _DELETE_CHUNK, refreshed[s])
             self.starts[s] = graph_state.medoid(st, int(self.ns[s]))[None]
             return int(marked.shape[0])
 
         def undo_packed(s):
-            for rows in refreshed[s]:
-                for part in rows.split(_UNDO_ROWS):
-                    packed_mod.refresh_rows(self.packed[s], self.arrays[s].adjacency, part)
+            delete_mod.rebuild_refreshed(self.packed[s], self.arrays[s].adjacency,
+                                         refreshed[s])
 
         self._free_total += sum(self._all_or_none(delete, undo_packed))
         self.n_deleted += len(ext_ids)

@@ -113,12 +113,16 @@ class VectorSet:
             if n == name:           # buffered, never committed: drop it
                 self._pending.pop(j)
                 return True
-        iid = self.name_to_id.pop(name, None)
+        iid = self.name_to_id.get(name)
         if iid is None:
             return False
+        # unbound only once the delete commits: a delete that raises leaves
+        # the index as it was, so the element stays (the reference unbinds
+        # first, and a second VREM then answers 0 and deletes nothing)
+        self.index.delete([iid])
+        del self.name_to_id[name]
         self.id_to_name.pop(iid, None)
         self.attributes.pop(name, None)
-        self.index.delete([iid])
         self._mark_label_dirty(iid)
         return True
 

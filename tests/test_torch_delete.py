@@ -21,9 +21,7 @@ carried across by `convert.py`; each case runs on a fresh copy of both.
 """
 
 import copy
-import dataclasses
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -36,7 +34,7 @@ from diskann_tpu_torch.bench.harness import make_clustered
 from diskann_tpu_torch.bench.recall import knn_recall
 from diskann_tpu_torch.convert import graph_index_from_arrays
 from diskann_tpu_torch.graph import delete as tdel
-from torch_port_helpers import CPU, jax_index_arrays, n, t
+from torch_port_helpers import CPU, jax_clone, jax_index_arrays, n, t
 
 N, D = 1200, 16
 CFG = dict(max_degree=12, l_build=24, beam_width=4, router_size=0)
@@ -61,25 +59,11 @@ def jax_indexes(data):
     return {"full": _jax_build(x, "full"), "packed": _jax_build(x, "packed")}
 
 
-def _clone(j):
-    """A JAX index whose arrays are copies (the packed upkeep donates its
-    buffers), with the start cache cleared so both sides derive it."""
-    c = copy.copy(j)
-    c.free_slots = list(j.free_slots)
-    c.state = jax.tree_util.tree_map(lambda a: jnp.array(a, copy=True), j.state)
-    if j.packed is not None:
-        c.packed = dataclasses.replace(j.packed, **{
-            f.name: jnp.array(getattr(j.packed, f.name), copy=True)
-            for f in dataclasses.fields(j.packed) if f.name != "r_pack"})
-    c._invalidate_start()
-    return c
-
-
 @pytest.fixture
 def pair(jax_indexes, request):
     """(JAX index, port index) over the same arrays; param: "full" or
     "packed"."""
-    j = _clone(jax_indexes[request.param])
+    j = jax_clone(jax_indexes[request.param])
     return j, graph_index_from_arrays(**jax_index_arrays(j), insert_batch_size=256)
 
 

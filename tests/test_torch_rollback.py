@@ -232,7 +232,9 @@ def test_failed_second_batch_keeps_the_first_and_frees_the_rest(packed_case, mon
         with pytest.raises(OOM):
             idx.insert(new)
     assert idx.n_deleted == 150 - 96 and len(idx.free_slots) == 54
-    _assert_same(_snapshot(idx), _snapshot(twin))
+    # each side's batch 1 aimed several masked writes at the dump row, in
+    # no fixed order: compare it on neither side
+    _assert_same(_snapshot(idx), _snapshot(twin), dump_row=False)
     # the retry hands out the 54 freed slots first, then fresh ones
     slots = idx.insert(new[96:])
     np.testing.assert_array_equal(slots, twin.insert(new[96:]))

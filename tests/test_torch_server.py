@@ -1,8 +1,9 @@
 """The port's RESP2 server (`diskann_tpu_torch/server.py`): the protocol
 source held equal to the JAX package's apart from the service it imports
 and the `--device` option of `main`, reply bytes equal for a table of
-values, the wire test of `tests/test_server.py` over a real socket, and
-the JAX package's client driving the port's server."""
+values, the wire test of `tests/test_server.py` over a real socket, the
+JAX package's client driving the port's server, and a VREM whose delete
+fails answered with -ERR while the element stays."""
 
 import json
 import re
@@ -124,3 +125,35 @@ def test_jax_client_drives_the_port_server(server):
         _drive(client, "jidx")
     finally:
         client.close()
+
+
+def test_failed_vrem_answers_err_and_keeps_the_element(monkeypatch):
+    # the delete behind a VREM raises: the server answers -ERR and keeps
+    # serving, the element stays, and the next VREM deletes it
+    from diskann_tpu_torch.graph import delete as tdel
+    from test_torch_rollback import _fail_call
+
+    srv = VectorSetServer(port=0, service=VectorService(device="cpu"))
+    host, port = srv.serve_background()
+    client = VectorSetClient(host, port, timeout=600.0)
+    try:
+        rng = np.random.default_rng(5)
+        assert client.create("r", 8, m=16, ef=32) == "OK"
+        vecs = rng.standard_normal((40, 8)).astype(np.float32)
+        for i, v in enumerate(vecs):
+            assert client.add("r", f"e{i}", v, attribute=f"cat{i % 2}") == 1
+        assert client.card("r") == 40
+        assert client.sim("r", vecs[3], k=1) == ["e3"]      # commits the adds
+        with monkeypatch.context() as mp:
+            _fail_call(mp, tdel, "drop_deleted_rows", 1)
+            with pytest.raises(ResponseError, match="ERR.*injected"):
+                client.remove("r", "e3")
+        assert client.card("r") == 40
+        assert json.loads(client.execute("VGETATTR", "r", "e3")) == "cat1"
+        assert client.sim("r", vecs[3], k=1) == ["e3"]
+        assert client.remove("r", "e3") == 1 and client.remove("r", "e3") == 0
+        assert client.card("r") == 39 and "e3" not in client.sim("r", vecs[3], k=5)
+    finally:
+        client.close()
+        srv.shutdown()
+        srv.server_close()

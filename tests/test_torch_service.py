@@ -5,14 +5,17 @@ below the crossover) and on the filtered scan carry equal names; the graph
 walks (paged, quantized) >= 99% equal names, as the two packages' float32
 sums may swap a near-tie; the backfilled code tables equal JAX's.  A flush
 whose insert fails keeps the buffered VADDs in the port (the JAX
-package's drops them)."""
+package's drops them), and a VREM whose delete fails keeps the element
+for the next VREM (the JAX package's unbinds it and leaks the node)."""
 
 import numpy as np
 import pytest
 import torch
 
 from diskann_tpu_torch.graph import build as tbuild
+from diskann_tpu_torch.graph import delete as tdel
 from diskann_tpu_torch.service import VectorService
+from test_torch_rollback import _fail_call
 from torch_port_helpers import n
 
 
@@ -225,3 +228,45 @@ def test_failed_flush_keeps_the_buffered_writes(monkeypatch):
     with pytest.raises(MemoryError):
         jvs.search_vector(q, k=5, l_search=16)
     assert jvs.card() == 24
+
+
+def test_failed_vrem_keeps_the_element(monkeypatch):
+    # a VREM whose delete raises keeps the name, its id, its attribute and
+    # its VCARD; the next VREM deletes it as one clean VREM does (the twin)
+    rng = np.random.default_rng(9)
+    names = [f"v{i}" for i in range(96)]
+    vecs = rng.standard_normal((96, 8)).astype(np.float32)
+    sets = {}
+    for key, svc in (_services() | {"twin": VectorService(device="cpu")}).items():
+        vs = sets[key] = svc.create_index("r", 8, max_degree=8, l_build=16,
+                                          insert_batch_size=64)
+        vs.add_batch(names, vecs, [{"i": i} for i in range(96)])
+    vs, twin, jvs = sets["port"], sets["twin"], sets["jax"]
+    iid = vs.name_to_id["v5"]
+    assert twin.remove("v5")
+
+    with monkeypatch.context() as mp:
+        _fail_call(mp, tdel, "drop_deleted_rows", 1)
+        with pytest.raises(torch.cuda.OutOfMemoryError):
+            vs.remove("v5")
+    assert vs.card() == 96 and vs.name_to_id["v5"] == iid and vs.id_to_name[iid] == "v5"
+    assert vs.get_attribute("v5") == {"i": 5}
+    assert vs.search_element("v5", k=3, l_search=16)
+    assert vs.remove("v5") and not vs.remove("v5")
+    assert vs.card() == twin.card() == 95
+    for f in ("adjacency", "degrees", "valid"):
+        np.testing.assert_array_equal(n(getattr(vs.index.state, f)),
+                                      n(getattr(twin.index.state, f)), err_msg=f)
+    assert vs.index.free_slots == twin.index.free_slots == [iid]
+
+    # the reference fault: the JAX package's VREM unbinds the name first, so
+    # after a failed delete the second VREM answers 0 and deletes nothing
+    def fail(*a, **k):
+        raise MemoryError("injected")
+
+    monkeypatch.setattr(jvs.index, "delete", fail)
+    with pytest.raises(MemoryError):
+        jvs.remove("v5")
+    monkeypatch.undo()
+    assert not jvs.remove("v5") and jvs.card() == 95
+    assert "v5" not in jvs.name_to_id and jvs.index.n_live == 96

@@ -57,6 +57,25 @@ def jax_index_arrays(idx) -> dict:
                 **jax_attachments(idx))
 
 
+def jax_clone(j):
+    """A JAX index whose arrays are copies (the packed upkeep donates its
+    buffers), with the start cache cleared so both sides derive it."""
+    import copy
+
+    import jax
+    import jax.numpy as jnp
+
+    c = copy.copy(j)
+    c.free_slots = list(j.free_slots)
+    c.state = jax.tree_util.tree_map(lambda a: jnp.array(a, copy=True), j.state)
+    if j.packed is not None:
+        c.packed = dataclasses.replace(j.packed, **{
+            f.name: jnp.array(getattr(j.packed, f.name), copy=True)
+            for f in dataclasses.fields(j.packed) if f.name != "r_pack"})
+    c._invalidate_start()
+    return c
+
+
 def jax_sharded_arrays(j) -> dict:
     """Keyword arguments of `sharded_index_from_arrays` for a JAX index."""
     cfg = dataclasses.asdict(j.config)
