@@ -141,11 +141,17 @@ Phases, each printing one line:
    recycled), save and load onto the same placement (identical ids), each
    time beside `SHARDED10M_r04.json`'s CPU-mesh figures.  On a host with
    several cards the phase runs three times with every shard on card 0
-   and three times spread over every card (shard s on card s % the
-   cards), interleaved; every run's ids at every L must equal the first
-   one-card run's, each placement's first run traces its last insert call
-   and one packed search (every card's busy share), and each operation's
-   medians and their ratio are printed;
+   (in this process) and three times spread over every card (shard s on
+   card s % the cards: a `Mesh` of one worker process a card, each
+   running its card's shards), interleaved; every run's ids at every L
+   must equal the first one-card run's, each placement's first run traces
+   its last insert call and one packed search (every card's busy share;
+   on the mesh inside each worker, with the caller's wait), the spread
+   placement's first run times the search with each transport of the
+   per-shard lists (CUDA IPC and a peer copy, or a host copy through the
+   pipe), and each operation's medians and their ratio are printed.  On
+   the mesh every card's kernel launches and peak memory are its worker's
+   own;
 20. [rollback], run right after phase 5: insert batches and sharded calls
    that fail part-way commit nothing.  (a) A copy of the 1M main index
    with room for one more batch takes an insert of 8192 more points of
@@ -164,11 +170,15 @@ Phases, each printing one line:
    for the call): bitwise as before, then a retry bitwise a copy that
    never failed, K1 and K2 launched inside the failing batches; then
    `tests/test_failure.py`'s corrupted adjacency on a copy, searched
-   packed (recall@10 >= 0.85, no id past the index).  (c) The one-card
-   [sharded] layout at 100k: an insert failing in shard 1's walk, a
-   delete failing in shard 1's repair and in its second packed refresh,
-   each leaving every shard and the bookkeeping bitwise as before; the
-   retries bitwise a copy that never failed.  (d) Deletes and
+   packed (recall@10 >= 0.85, no id past the index).  (c) The
+   [sharded] layout at 100k on a mesh of one worker process a shard (all
+   on card 0 with one card): an insert failing in shard 1's walk, a
+   delete failing in shard 1's repair and in its second packed refresh
+   (injected inside shard 1's worker), and the insert under a memory cap
+   set inside every worker (a real out-of-memory error, raised in a
+   worker and kept as `torch.cuda.OutOfMemoryError`), each leaving every
+   shard and the bookkeeping bitwise as before; the retries bitwise a
+   copy that never failed.  (d) Deletes and
    consolidations that fail part-way commit nothing: a copy of the 1M
    main index deletes 5% (50,000 ids over the whole index) with the
    stream's settings (scan, fill, max_dead=8) and with the default (scan,
@@ -234,8 +244,9 @@ bytes; from another checkout's root it measures that tree's delete);
 `--only rollback` phases 1-3, 5 and 20; `--only sharded` runs phases 1-3, the
 kernel checks on every card and [sharded] alone; `--only sharded-trace` builds phase 19's index on card 0,
 traces one insert call and one packed search there, loads it onto every
-card and traces both again; `--only sharded6m` needs four cards (it
-raises on fewer): 6M x 128 points of the main path's generator at its
+card (a worker process each) and traces both again inside each worker;
+`--only sharded6m` needs four cards (it raises on fewer; a worker
+process a card): 6M x 128 points of the main path's generator at its
 points per cluster (24,576 clusters), 4 shards by the k-means partition
 with overlap 2, one per card (~3.1M nodes and a 38 GB packed table at
 dp=128 a card, ~152 GB on one card), inserts of 8192, attach, packed and
@@ -1159,6 +1170,156 @@ def card_launches(k1, k2, cards) -> dict:
     ``cards`` (CUDA device indices)."""
     return {c: {"fatrow_expand": k1.launches_by_device.get(c, 0),
                 "block_patch": k2.launches_by_device.get(c, 0)} for c in cards}
+
+
+def index_launches(k1, k2, idx, cards) -> dict:
+    """Both kernels' launches per card since the last reset, for sharded
+    index ``idx``: from its mesh workers (each counts its own card's) when
+    it has a mesh, else this process's counts for ``cards``; every count
+    restarts at 0."""
+    if idx.mesh is None:
+        got = card_launches(k1, k2, cards)
+        take_launches(k1, k2)
+        return got
+    return {d.index: n for d, n in zip(idx.mesh.devices, idx.mesh.kernel_launches())}
+
+
+def launch_totals(per_card: dict) -> dict:
+    return {k: sum(c[k] for c in per_card.values()) for k in ("fatrow_expand", "block_patch")}
+
+
+def card_peaks(torch, idx, cards) -> dict:
+    """Each card's `max_memory_allocated`: its mesh worker's when ``idx``
+    has a mesh, else this process's."""
+    if idx.mesh is None:
+        return {c: torch.cuda.max_memory_allocated(c) for c in cards}
+    return {d.index: b for d, b in zip(idx.mesh.devices, idx.mesh.run(worker_peak_bytes))}
+
+
+# ------------------------------------------------ what runs in a mesh worker
+# A sharded index that spans several cards keeps each card's shards in that
+# card's worker process (`parallel/mesh.py`); these functions run there,
+# through `Mesh.run` or `ShardedGraphIndex._run` (the worker imports this
+# script by name, as `spawn` does).
+_WORKER_TRACE: dict = {}
+_WORKER_PATCHES: list = []
+
+
+def worker_peak_bytes() -> int:
+    import torch
+
+    return torch.cuda.max_memory_allocated()
+
+
+def worker_memory_cap(headroom_mib) -> None:
+    """`memory_cap` in the worker, left on (None: lifted)."""
+    import torch
+
+    dev = torch.cuda.current_device()
+    if headroom_mib is None:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        return
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    in_use = torch.cuda.memory_allocated(dev)
+    torch.cuda.set_per_process_memory_fraction((in_use + (headroom_mib << 20)) / total, dev)
+
+
+def worker_trace_start() -> None:
+    """Start torch.profiler and the "trace_window" range in the worker."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.__enter__()
+    window = record_function("trace_window")
+    window.__enter__()
+    _WORKER_TRACE.update(prof=prof, window=window)
+
+
+def worker_trace_stop(what: str) -> dict:
+    """Drain the worker's card, end its window and profile: its
+    `trace_summary`."""
+    import torch
+
+    torch.cuda.synchronize()
+    _WORKER_TRACE.pop("window").__exit__(None, None, None)
+    prof = _WORKER_TRACE.pop("prof")
+    prof.__exit__(None, None, None)
+    return trace_summary(torch, prof.events(), f"{what} [worker on card "
+                         f"{torch.cuda.current_device()}]", 3)
+
+
+def worker_adopt_synthetic(shards, n_total: int, r: int, n_shards: int) -> None:
+    """`adopt_synthetic` on the shards held here."""
+    import torch
+
+    ns = n_total // n_shards
+    cap = shards.cap
+    for i, s in enumerate(shards.ids):
+        dev = shards.devices[i]
+        slot = torch.arange(cap, device=dev, dtype=torch.int32)
+        live = slot < ns
+        adj = (slot[:, None] + torch.arange(1, r + 1, device=dev, dtype=torch.int32)) % ns
+        adj = torch.where(live[:, None], adj, -1)
+        adj = torch.nn.functional.pad(adj, (0, shards.config.max_degree_with_slack - r),
+                                      value=-1)
+        g = torch.Generator(device=dev).manual_seed(s)
+        vecs = torch.randn((cap, shards.dim), generator=g, device=dev)
+        vecs[~live] = 0.0
+        st = shards.arrays[i]
+        st.vectors.copy_(vecs)
+        st.sq_norms.copy_((vecs * vecs).sum(1))
+        st.adjacency.copy_(adj)
+        st.degrees.copy_(torch.where(live, r, 0))
+        st.valid.copy_(live)
+        st.vec_sum.copy_(vecs.sum(0))
+        shards.ext[i].copy_(torch.where(live, slot * n_shards + s, -1))
+        shards.starts[i].zero_()
+
+
+def _worker_patch(module, name: str, value) -> None:
+    _WORKER_PATCHES.append((module, name, getattr(module, name)))
+    setattr(module, name, value)
+
+
+def worker_fail_step(shards, module: str, name: str, s: int, flags: int) -> None:
+    """`fail_on_shard` on ``module.name`` for shard ``s``, where it is held."""
+    import importlib
+
+    import torch
+
+    if s in shards.ids:
+        mod = importlib.import_module(module)
+        _worker_patch(mod, name, fail_on_shard(torch, shards.arrays[shards.ids.index(s)],
+                                               flags)(getattr(mod, name)))
+
+
+def worker_fail_refresh(shards, s: int, nth: int) -> None:
+    """Shard ``s``'s ``nth`` packed refresh raises an injected
+    out-of-memory error after it ran, where the shard is held."""
+    import torch
+
+    from diskann_tpu_torch.graph import packed as packed_mod
+
+    if s not in shards.ids:
+        return
+    target, orig, calls = shards.packed[shards.ids.index(s)], packed_mod.refresh_rows, [0]
+
+    def call(packed, adjacency, rows, journal=None):
+        orig(packed, adjacency, rows, journal)
+        if packed is target:
+            calls[0] += 1
+            if calls[0] == nth:
+                raise torch.cuda.OutOfMemoryError("injected")
+
+    _worker_patch(packed_mod, "refresh_rows", call)
+
+
+def worker_undo(shards) -> None:
+    """Put back what the injections above replaced."""
+    while _WORKER_PATCHES:
+        module, name, orig = _WORKER_PATCHES.pop()
+        setattr(module, name, orig)
 
 
 def lap_clock():
@@ -2833,8 +2994,9 @@ def run_sharded(device, n: int, gt, k1, k2) -> dict:
     spread over every card, interleaved one, all, all, one, one, all;
     every run's ids at every L must equal the first one-card run's, each
     placement's first run traces one insert call and one packed search
-    (`trace_fanout`: every card's busy share), and the medians of each
-    operation on both placements are printed with their ratio."""
+    (`trace_index`: every card's busy share, inside each worker on the
+    mesh), and the medians of each operation on both placements are
+    printed with their ratio."""
     import numpy as np
     import torch
 
@@ -2902,8 +3064,9 @@ def sharded_run(torch, x, qd, gt, assign, counts, cards, k1, k2, *, first: bool,
     external ids (none may come back); with ``first`` also the filtered
     "cat0" search, save and a load onto the first card alone (identical
     ids at L=40) and `sharded_flat_search` over the same cards against
-    `FlatIndex` (identical ids).  Every card that holds a shard must
-    launch K2 in the attach and the delete and K1 in the packed walk.
+    `FlatIndex` (identical ids), and on a mesh `time_transports`.  Every
+    card that holds a shard must launch K2 in the attach and the delete
+    and K1 in the packed walk (on a mesh, as its worker counts them).
     Returns the run's figures, with the ids of every sweep point under
     "ids"."""
     import numpy as np
@@ -2927,15 +3090,21 @@ def sharded_run(torch, x, qd, gt, assign, counts, cards, k1, k2, *, first: bool,
     def per_card(phase: str, need: str | None = None) -> dict:
         """The phase's per-card launches (then restart the counts); with
         ``need``, every card that holds a shard must have launched it."""
-        got = card_launches(k1, k2, used)
+        got = index_launches(k1, k2, idx, used)
         log(f"[sharded] {phase} kernel launches per card: {got}")
         missing = [c for c in used if need and got[c][need] == 0]
         if missing:
             raise RuntimeError(f"[sharded] {phase}: cards {missing} never launched {need}")
-        return {"per_card": got, **take_launches(k1, k2)}
+        return {"per_card": got, **launch_totals(got)}
 
+    t0 = time.time()
     idx = ShardedGraphIndex(cards, D, main_config(), cap_per_shard=int(counts.max()))
-    take_launches(k1, k2)
+    out["start_s"] = time.time() - t0
+    if idx.mesh is not None:
+        log(f"[sharded] a mesh of {idx.mesh.size} worker processes, one a card "
+            f"({[str(d) for d in idx.mesh.devices]}, pids {idx.mesh.pids}), started in "
+            f"{out['start_s']:.1f}s; each runs its card's shards")
+    per_card("the index's allocation")
     last = (n - 1) // 8192 * 8192
 
     def insert_all():
@@ -2950,15 +3119,15 @@ def sharded_run(torch, x, qd, gt, assign, counts, cards, k1, k2, *, first: bool,
         idx.insert(x[last:], assign[last:])
 
     if trace:
-        out["trace_insert"] = trace_fanout(torch, insert_last, f"the last insert call "
-                                           f"({n - last} rows) on {out['placement']}")
+        out["trace_insert"] = trace_index(torch, idx, insert_last, f"the last insert call "
+                                          f"({n - last} rows) on {out['placement']}")
     else:
         _timed(torch, device, insert_last)
     log(f"[sharded] inserts of 8192 (full precision; the {last // 8192} calls before the "
         f"last): {dt:.1f}s ({last / dt:.0f} points/s, {routed / dt:.0f} routed rows/s); "
         f"capacity per shard {idx.cap_per_shard}")
-    out["build_launches"] = take_launches(k1, k2, "sharded build")
-    ecol = idx._host_arrays()["ext"]
+    out["build_launches"] = per_card("sharded build")
+    ecol = np.concatenate([e.cpu().numpy() for e in idx.ext])
     if not (np.bincount(ecol[ecol >= 0], minlength=n) == 2).all():
         raise RuntimeError("[sharded] an external id is not stored in exactly two shards")
     _, dt = _timed(torch, device, lambda: idx.attach_packed(dp=128))
@@ -2985,10 +3154,12 @@ def sharded_run(torch, x, qd, gt, assign, counts, cards, k1, k2, *, first: bool,
         raise RuntimeError(f"[sharded] packed search: best recall {best:.4f}, "
                            f"launches {out['packed_launches']}")
     if trace:
-        out["trace_search"] = trace_fanout(
-            torch, lambda: idx.search(qd, K, l_search=24, mode="packed"),
+        out["trace_search"] = trace_index(
+            torch, idx, lambda: idx.search(qd, K, l_search=24, mode="packed"),
             f"one packed search of {NQ} queries at L=24 on {out['placement']}")
-        take_launches(k1, k2)
+    if first and idx.mesh is not None:
+        out["transports"] = time_transports(torch, idx, qd)
+    per_card("the traces")
 
     if first:
         cats = bench_cats(n)
@@ -3004,7 +3175,7 @@ def sharded_run(torch, x, qd, gt, assign, counts, cards, k1, k2, *, first: bool,
             f"{out['cat0']['recall']:.4f} qps={out['cat0']['qps']:.0f}")
 
     dead = np.random.default_rng(5).choice(n, size=SHARD_DELETE, replace=False)
-    take_launches(k1, k2)
+    per_card("the filtered search")
     _, dt = _timed(torch, device, lambda: idx.delete(dead))
     out["delete"] = {"n": SHARD_DELETE, "s": dt, "freed": idx._free_total,
                      "launches": per_card("delete", "block_patch")}
@@ -3017,11 +3188,12 @@ def sharded_run(torch, x, qd, gt, assign, counts, cards, k1, k2, *, first: bool,
         f"{dt:.1f}s; no deleted id returned; recall@{K} at L=40 against the "
         f"pre-delete truth: full {out['delete']['full_recall']:.4f}, packed "
         f"{out['delete']['packed_recall']:.4f}")
-    take_launches(k1, k2)
+    per_card("the searches after the delete")
     if used:
-        out["peak_gib_per_card"] = {c: torch.cuda.max_memory_allocated(c) / 2**30
-                                    for c in used}
-        log(f"[sharded] max_memory_allocated per card (GiB): {out['peak_gib_per_card']}")
+        out["peak_gib_per_card"] = {c: b / 2**30 for c, b in card_peaks(torch, idx,
+                                                                        used).items()}
+        log(f"[sharded] max_memory_allocated per card (GiB"
+            f"{', each worker its own' if idx.mesh else ''}): {out['peak_gib_per_card']}")
     if not first:
         del idx
         torch.cuda.empty_cache()
@@ -3064,6 +3236,37 @@ def sharded_run(torch, x, qd, gt, assign, counts, cards, k1, k2, *, first: bool,
     return out
 
 
+def time_transports(torch, idx, qd) -> dict:
+    """The wall of a search call on a mesh index with each transport of the
+    per-shard lists to the first card (`parallel/mesh.Mesh._transport`: CUDA
+    IPC and a peer copy, or a host copy through the pipe): the NQ queries
+    at L=100, full mode (each shard's [NQ, 100] list crosses) and packed
+    (its reranked [NQ, 10] list), SHARD_REPS calls a transport in the
+    order ipc, host, host, ipc, ...; the medians, and identical ids."""
+    import numpy as np
+
+    out = {}
+    for mode in ("full", "packed"):
+        walls, ids = {t: [] for t in ("ipc", "host")}, {}
+        for t in ("ipc", "host", "host", "ipc", "ipc", "host")[:2 * SHARD_REPS]:
+            idx.mesh._transport = t
+            (_, got, _), dt = _timed(torch, qd.device, lambda: idx.search(
+                qd, K, l_search=100, mode=mode))
+            walls[t].append(dt * 1e3)
+            ids.setdefault(t, got)
+        idx.mesh._transport = "ipc"
+        same = bool(np.array_equal(ids["ipc"], ids["host"]))
+        out[mode] = {t: {"ms": float(np.median(w)), "all_ms": w} for t, w in walls.items()}
+        out[mode]["identical_ids"] = same
+        log(f"[sharded] merge transports, {mode} search of {NQ} queries at L=100 on "
+            f"{idx.mesh.size} workers: median of {SHARD_REPS} calls, CUDA IPC + peer copy "
+            f"{out[mode]['ipc']['ms']:.1f} ms, host copy through the pipe "
+            f"{out[mode]['host']['ms']:.1f} ms; identical ids {same}")
+        if not same:
+            raise RuntimeError("[sharded] the transports disagree")
+    return out
+
+
 def _merge_spans(spans):
     """Sorted, merged [start, end) intervals."""
     out = []
@@ -3082,21 +3285,27 @@ _BLOCKING = ("cudaStreamSynchronize", "cudaEventSynchronize", "cudaDeviceSynchro
 
 def trace_fanout(torch, fn, what: str, *, gaps: int = 3) -> dict:
     """torch.profiler (CPU and CUDA) over one call of ``fn`` on a sharded
-    index: the call's wall, each card's busy time (the union of its kernel
-    and copy spans) and busy share of the wall, each host thread's time in
-    calls that block on a card (`_BLOCKING`) and its dispatch time (the
-    rest of the wall), and each card's ``gaps`` longest idle gaps, each
-    named by what the host was doing then: its blocked time inside the gap
-    and the ops it issued (count, and the two that overlap the gap most)."""
+    index in this process: `trace_summary` of the window, logged."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    cards = list(range(torch.cuda.device_count()))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with record_function("trace_window"):
             fn()
-            for c in cards:
+            for c in range(torch.cuda.device_count()):
                 torch.cuda.synchronize(c)
-    events = prof.events()
+    out = trace_summary(torch, prof.events(), what, gaps)
+    log_trace(out)
+    return out
+
+
+def trace_summary(torch, events, what: str, gaps: int) -> dict:
+    """A traced window's (the "trace_window" range's) wall, each card's
+    busy time (the union of its kernel and copy spans) and busy share of
+    the wall, each host thread's time in calls that block on a card
+    (`_BLOCKING`), its dispatch time (the rest of the wall) and the ops it
+    issued, and each card's ``gaps`` longest idle gaps, each named by what
+    the host was doing then: its blocked time inside the gap and the ops
+    it issued (count, and the two that overlap the gap most)."""
     win = next(e for e in events if e.name == "trace_window").time_range
     t0, t1 = win.start, win.end
     wall = (t1 - t0) / 1e3
@@ -3148,7 +3357,11 @@ def trace_fanout(torch, fn, what: str, *, gaps: int = 3) -> dict:
             "top_ms": sorted(((ms, name[:60]) for name, ms in by_name.items()),
                              reverse=True)[:4],
             "longest_gaps": named}
-    log(f"[trace] {what}: wall {wall:.1f} ms; per card busy ms (share): "
+    return out
+
+
+def log_trace(out: dict) -> None:
+    log(f"[trace] {out['what']}: wall {out['wall_ms']:.1f} ms; per card busy ms (share): "
         + ", ".join(f"{c} {v['busy_ms']:.1f} ({v['busy_share']:.3f})"
                     for c, v in out["cards"].items())
         + "; host threads blocked / dispatch ms: "
@@ -3162,7 +3375,30 @@ def trace_fanout(torch, fn, what: str, *, gaps: int = 3) -> dict:
                 f"{g['ms']:.2f} ms at {g['at_ms']:.1f} (host blocked {g['host_blocked_ms']:.2f}"
                 f" ms, {g['ops_issued']} ops, {', '.join(g['longest_ops'])})"
                 for g in v["longest_gaps"]))
-    return out
+
+
+def trace_index(torch, idx, fn, what: str) -> dict:
+    """One call of ``fn`` on sharded index ``idx``, traced where its shards
+    run: in this process (`trace_fanout`), or in each of its mesh workers
+    (`worker_trace_start` / `worker_trace_stop`: each worker's own window,
+    its card's busy share, its host thread's ops and its longest gaps),
+    with this process's wait for the call."""
+    if idx.mesh is None:
+        return trace_fanout(torch, fn, what)
+    idx.mesh.run(worker_trace_start)
+    t0 = time.perf_counter()
+    fn()
+    wait_ms = (time.perf_counter() - t0) * 1e3
+    workers = idx.mesh.run(worker_trace_stop, what)
+    log(f"[trace] {what}: the caller waited {wait_ms:.1f} ms for the call; each mesh "
+        "worker's own trace (its window opens before the call and closes after it):")
+    for w in workers:
+        log_trace(w)
+        for c, v in w["cards"].items():
+            v["busy_share_of_call"] = v["busy_ms"] / wait_ms
+            log(f"[trace]   card {c}: busy {v['busy_ms']:.1f} ms, "
+                f"{v['busy_share_of_call']:.3f} of the caller's wait")
+    return {"what": what, "caller_wait_ms": wait_ms, "workers": workers}
 
 
 def only_sharded_trace(torch, device, n: int) -> int:
@@ -3171,7 +3407,9 @@ def only_sharded_trace(torch, device, n: int) -> int:
     for its last three insert calls of 8192.  On card 0: one insert call
     traced (`trace_fanout`), attach_packed(dp=128), one untraced packed
     search of the NQ queries at L=24 and one traced.  Then saved, loaded
-    onto `shard_cards`, one untraced insert call, the last one traced,
+    onto `shard_cards` (a worker process a card), one untraced insert
+    call, the last one traced in each worker (`trace_index`: each card's
+    busy share, its worker's ops and longest gaps, and the caller's wait),
     attach_packed(dp=128) and the two searches again.  Prints a summary
     line."""
     import numpy as np
@@ -3198,13 +3436,13 @@ def only_sharded_trace(torch, device, n: int) -> int:
 
     def trace_placement(tag: str, first_call: int) -> dict:
         got = {"placement": [str(c) for c in idx.devices]}
-        got["insert"] = trace_fanout(torch, insert(first_call),
-                                     f"{tag}: one insert call of 8192 rows (full precision)")
+        got["insert"] = trace_index(torch, idx, insert(first_call),
+                                    f"{tag}: one insert call of 8192 rows (full precision)")
         idx.attach_packed(dp=128)
         idx.search(qd, K, l_search=24, mode="packed")
         sync(torch, device)
-        got["packed_search"] = trace_fanout(
-            torch, lambda: idx.search(qd, K, l_search=24, mode="packed"),
+        got["packed_search"] = trace_index(
+            torch, idx, lambda: idx.search(qd, K, l_search=24, mode="packed"),
             f"{tag}: one packed search of {NQ} queries at L=24")
         return got
 
@@ -3220,7 +3458,8 @@ def only_sharded_trace(torch, device, n: int) -> int:
     lap("one_card_traces_save_and_load")
     insert(1)()
     sync(torch, device)
-    out["spread"] = trace_placement(f"{len(set(idx.devices))} cards", 2)
+    out["spread"] = trace_placement(f"{len(set(idx.devices))} cards, a worker process each",
+                                    2)
     lap("spread_traces")
     log("[summary] " + json.dumps({"sharded_trace": out, "walls": walls}))
     return 0
@@ -3286,8 +3525,12 @@ def run_sharded6m(device, k1, k2, *, n: int = SH6M_N, nq: int = SH6M_NQ) -> dict
         f"for the table alone")
     lap("data_truth_partition")
 
+    t0 = time.time()
     idx = ShardedGraphIndex(cards, D, cfg, cap_per_shard=cap)
-    take_launches(k1, k2)
+    out["start_s"] = time.time() - t0
+    log(f"[sharded6m] a mesh of {idx.mesh.size} worker processes, one a card, started in "
+        f"{out['start_s']:.1f}s (pids {idx.mesh.pids})")
+    index_launches(k1, k2, idx, used)
     t0 = time.time()
     for i, off in enumerate(range(0, n, 8192)):
         idx.insert(x[off:off + 8192], assign[off:off + 8192])
@@ -3300,15 +3543,15 @@ def run_sharded6m(device, k1, k2, *, n: int = SH6M_N, nq: int = SH6M_NQ) -> dict
     out.update(build_s=dt, routed_rows_per_s=int(counts.sum()) / dt)
     log(f"[sharded6m] inserts of 8192 (full precision): {dt:.1f}s "
         f"({n / dt:.0f} points/s, {out['routed_rows_per_s']:.0f} routed rows/s)")
-    take_launches(k1, k2)
+    index_launches(k1, k2, idx, used)
     lap("inserts")
 
     def per_card(phase: str, need: str) -> dict:
-        got = card_launches(k1, k2, used)
-        log(f"[sharded6m] {phase} kernel launches per card: {got}")
+        got = index_launches(k1, k2, idx, used)
+        log(f"[sharded6m] {phase} kernel launches per card (from each card's worker): {got}")
         if any(got[c][need] == 0 for c in used):
             raise RuntimeError(f"[sharded6m] {phase}: a card never launched {need}")
-        return {"per_card": got, **take_launches(k1, k2)}
+        return {"per_card": got, **launch_totals(got)}
 
     _, out["attach_s"] = _timed(torch, device, lambda: idx.attach_packed(dp=SH6M_DP))
     out["attach_launches"] = per_card("attach_packed", "block_patch")
@@ -3324,7 +3567,7 @@ def run_sharded6m(device, k1, k2, *, n: int = SH6M_N, nq: int = SH6M_NQ) -> dict
                 f"qps={pt['qps']:.0f}")
         if mode == "packed":
             out["packed_launches"] = per_card("packed search", "fatrow_expand")
-    take_launches(k1, k2)
+    index_launches(k1, k2, idx, used)
     best = max(p["recall"] for p in out["sweep"] if p["mode"] == "packed")
     lap("search")
 
@@ -3344,9 +3587,9 @@ def run_sharded6m(device, k1, k2, *, n: int = SH6M_N, nq: int = SH6M_NQ) -> dict
         f"{out['delete']['full_recall']:.4f}")
     lap("delete")
     if device.type == "cuda":
-        out["peak_bytes_per_card"] = {c: torch.cuda.max_memory_allocated(c) for c in used}
+        out["peak_bytes_per_card"] = card_peaks(torch, idx, used)
         out["card_bytes"] = {c: torch.cuda.get_device_properties(c).total_memory for c in used}
-        log("[sharded6m] max_memory_allocated per card (GB): " + ", ".join(
+        log("[sharded6m] max_memory_allocated per card (GB, each card's worker): " + ", ".join(
             f"{c}: {out['peak_bytes_per_card'][c] / 1e9:.2f} of "
             f"{out['card_bytes'][c] / 1e9:.2f}" for c in used))
         if any(out["peak_bytes_per_card"][c] >= SH6M_PEAK_BYTES for c in used):
@@ -3367,34 +3610,13 @@ def adopt_synthetic(torch, idx, n_total: int, r: int) -> None:
     (`scripts/bench_sharded10m.py`'s recipe): a ring adjacency (slot i ->
     i+1..i+r mod the shard's rows; no repeats, no self-loops, degrees
     consistent), random Gaussian vectors, round-robin external ids (slot i
-    of shard s holds s + i * n_shards).  The vectors are drawn on the first
-    shard's device, shard by shard, and copied to each shard's: the data
-    are the same on any placement."""
-    s_count = idx.n_shards
-    ns = n_total // s_count
-    cap = idx.cap_per_shard
-    g = torch.Generator(device=idx.device).manual_seed(0)
-    for s in range(s_count):
-        dev = idx.devices[s]
-        slot = torch.arange(cap, device=dev, dtype=torch.int32)
-        live = slot < ns
-        adj = (slot[:, None] + torch.arange(1, r + 1, device=dev, dtype=torch.int32)) % ns
-        adj = torch.where(live[:, None], adj, -1)
-        adj = torch.nn.functional.pad(adj, (0, idx.config.max_degree_with_slack - r),
-                                      value=-1)
-        vecs = torch.randn((cap, idx.dim), generator=g, device=idx.device).to(dev)
-        vecs[~live] = 0.0
-        st = idx.shard(s)
-        st.vectors.copy_(vecs)
-        st.sq_norms.copy_((vecs * vecs).sum(1))
-        st.adjacency.copy_(adj)
-        st.degrees.copy_(torch.where(live, r, 0))
-        st.valid.copy_(live)
-        st.vec_sum.copy_(vecs.sum(0))
-        idx.ext[s].copy_(torch.where(live, slot * s_count + s, -1))
-        idx.starts[s].zero_()
-    idx.ns[:] = ns
-    idx.next_ext = ns * s_count
+    of shard s holds s + i * n_shards).  Each shard is written where it
+    lives (`worker_adopt_synthetic`, in its mesh worker or here), its
+    vectors drawn on its card from a generator seeded with its number: the
+    data are the same on any placement of cards."""
+    idx._run(worker_adopt_synthetic, n_total, r, idx.n_shards)
+    idx.ns[:] = n_total // idx.n_shards
+    idx.next_ext = n_total // idx.n_shards * idx.n_shards
 
 
 def run_sharded_10m(device, k1, k2, one_card=None, *, save_load: bool = True) -> dict:
@@ -3433,7 +3655,8 @@ def run_sharded_10m(device, k1, k2, one_card=None, *, save_load: bool = True) ->
         return sum(int((~idx.shard(s).valid[: int(idx.ns[s])]).sum())
                    for s in range(s_count))
 
-    take_launches(k1, k2)
+    used = sorted({d.index for d in idx.devices if d.type == "cuda"})
+    index_launches(k1, k2, idx, used)
     ext_ids, out["insert_s"] = _timed(torch, device, lambda: idx.insert(
         rng.standard_normal((bsz, SH10M_D)).astype(np.float32),
         rng.integers(0, s_count, size=(bsz, 2))))
@@ -3454,7 +3677,8 @@ def run_sharded_10m(device, k1, k2, one_card=None, *, save_load: bool = True) ->
     _, i, _ = idx.search(q, K)
     if not ((i >= 0) & (i < idx.next_ext)).all() or np.isin(i, dead).any():
         raise RuntimeError("[sharded-10m] search returned an invalid or deleted id")
-    out["launches"] = take_launches(k1, k2, "sharded-10m")
+    out["launches"] = launch_totals(index_launches(k1, k2, idx, used))
+    log(f"[sharded-10m] kernel launches: {out['launches']}")
     for key in ("insert", "delete", "reinsert"):
         log(f"[sharded-10m] {key} {out[key + '_s']:.2f}s on the card (the JAX package's "
             f"8-device CPU mesh, SHARDED10M_r04.json: {SH10M_R04[key]}s)")
@@ -3553,24 +3777,6 @@ def clone_index(idx, capacity: int | None = None):
     return c
 
 
-def clone_sharded(idx):
-    """A copy of `ShardedGraphIndex` ``idx`` on fresh tensors."""
-    import copy
-    import dataclasses
-
-    from diskann_tpu_torch.graph.state import GraphArrays
-
-    c = copy.copy(idx)
-    c.arrays = [GraphArrays(*(t.clone() for t in st)) for st in idx.arrays]
-    c.ext = [e.clone() for e in idx.ext]
-    c.starts = [t.clone() for t in idx.starts]
-    c.ns = idx.ns.copy()
-    c.packed = [dataclasses.replace(p, self_codes=p.self_codes.clone(),
-                                    self_aux=p.self_aux.clone(), rows=p.rows.clone())
-                for p in idx.packed]
-    return c
-
-
 def index_tensors(idx) -> dict:
     """Every tensor of a `GraphIndex`'s state and packed table, by name."""
     out = dict(idx.state._asdict())
@@ -3583,13 +3789,15 @@ def index_host(idx) -> tuple:
 
 
 def sharded_tensors(idx) -> dict:
-    """Every tensor of a `ShardedGraphIndex`, by shard and name."""
+    """Every tensor of a `ShardedGraphIndex`, by shard and name (on a mesh,
+    views of its workers' tensors)."""
     out = {}
+    arrays, packed, ext, starts = idx.arrays, idx.packed, idx.ext, idx.starts
     for s in range(idx.n_shards):
-        out |= {f"{s}.{f}": t for f, t in idx.shard(s)._asdict().items()}
-        out |= {f"{s}.packed.{f}": getattr(idx.packed[s], f)
+        out |= {f"{s}.{f}": t for f, t in arrays[s]._asdict().items()}
+        out |= {f"{s}.packed.{f}": getattr(packed[s], f)
                 for f in ("self_codes", "self_aux", "rows")}
-        out[f"{s}.ext"], out[f"{s}.start"] = idx.ext[s], idx.starts[s]
+        out[f"{s}.ext"], out[f"{s}.start"] = ext[s], starts[s]
     return out
 
 
@@ -3921,25 +4129,32 @@ def check_corrupt_adjacency(base, xd, k1) -> dict:
 
 
 def run_rollback_sharded(device, k1, k2) -> dict:
-    """[rollback] (c): the one-card [sharded] layout at ROLLBACK_N points
-    (SHARD_S shards on ``device``, the k-means partition with overlap 2,
-    inserts of ROLLBACK_BATCH, attach_packed(dp=128)).  An insert of
-    ROLLBACK_BATCH more rows fails in shard 1's walk; a delete of ROLLBACK_DELETE external ids fails
-    in shard 1's repair, then in its second packed refresh: each call must
-    leave every shard's tensors and the host bookkeeping bitwise as they
-    were.  The insert and delete then commit, bitwise equal to a copy that
-    never failed (the dump rows aside)."""
+    """[rollback] (c): the [sharded] layout at ROLLBACK_N points on a mesh
+    (`parallel/mesh.py`): SHARD_S shards, each in a worker process of its
+    own on card s % the visible cards (all on ``device`` with one card),
+    the k-means partition with overlap 2, inserts of ROLLBACK_BATCH,
+    attach_packed(dp=128).  An insert of ROLLBACK_BATCH more rows fails in
+    shard 1's walk; a delete of ROLLBACK_DELETE external ids fails in
+    shard 1's repair, then in its second packed refresh (each failure
+    injected inside shard 1's worker); the insert also runs under a
+    device-memory cap set inside every worker (the memory in use plus
+    ROLLBACK_CAPS_MIB[0]) and must end in a real out-of-memory error,
+    raised in a worker and kept as `torch.cuda.OutOfMemoryError` here.
+    Each call must leave every shard's tensors and the host bookkeeping
+    bitwise as they were.  The insert and delete then commit, bitwise
+    equal to a copy that never failed (the dump rows aside)."""
     import numpy as np
     import torch
 
-    from diskann_tpu_torch.parallel import ShardedGraphIndex, kmeans_partition
-    from diskann_tpu_torch.parallel import sharded as sharded_mod
+    from diskann_tpu_torch.parallel import Mesh, ShardedGraphIndex, kmeans_partition
 
     x = more_points(3, ROLLBACK_N + ROLLBACK_BATCH)
     _, assign = kmeans_partition(x[:ROLLBACK_N], SHARD_S, overlap=2, device=device)
     counts = np.bincount(assign.ravel(), minlength=SHARD_S)
-    idx = ShardedGraphIndex([device] * SHARD_S, D, main_config(),
+    mesh = Mesh(shard_cards(torch, device, SHARD_S))
+    idx = ShardedGraphIndex(mesh, D, main_config(),
                             cap_per_shard=int(counts.max()) + ROLLBACK_BATCH)
+    cards = sorted({d.index for d in idx.devices if d.type == "cuda"})
     x, new = x[:ROLLBACK_N], x[ROLLBACK_N:]
     for off in range(0, ROLLBACK_N, ROLLBACK_BATCH):
         idx.insert(x[off:off + ROLLBACK_BATCH], assign[off:off + ROLLBACK_BATCH])
@@ -3947,34 +4162,32 @@ def run_rollback_sharded(device, k1, k2) -> dict:
     rr = np.arange(ROLLBACK_BATCH)
     new_assign = np.stack([rr % SHARD_S, (rr + 1) % SHARD_S], 1)
     doomed = np.random.default_rng(4).choice(ROLLBACK_N, ROLLBACK_DELETE, replace=False)
-    twin = clone_sharded(idx)
+    twin = idx._copy()
     twin.insert(new, new_assign)
     twin.delete(doomed)
-    want_t, want_h = sharded_tensors(clone_sharded(idx)), sharded_host(idx)
-    out = {"shards": SHARD_S, "rows_per_shard": counts.tolist(), "calls": {}}
-
-    def refresh_fails(orig):
-        calls = [0]
-
-        def call(packed, adjacency, rows, journal=None):
-            orig(packed, adjacency, rows, journal)
-            if packed is idx.packed[1]:
-                calls[0] += 1
-                if calls[0] == 2:
-                    raise torch.cuda.OutOfMemoryError("injected")
-        return call
-
-    for what, module, name, make, fn in (
-            ("insert, shard 1's walk", sharded_mod, "insert_batch_steps",
-             fail_on_shard(torch, idx.shard(1), 3), lambda: idx.insert(new, new_assign)),
-            ("delete, shard 1's repair", sharded_mod.delete_mod, "patch_rows_steps",
-             fail_on_shard(torch, idx.shard(1), 1), lambda: idx.delete(doomed)),
-            ("delete, shard 1's second packed refresh", sharded_mod.packed_mod,
-             "refresh_rows", refresh_fails, lambda: idx.delete(doomed))):
-        take_launches(k1, k2)
-        with failing(module, name, make):
+    # the snapshot is a copy's, so that writes to ``idx`` cannot reach it
+    snap = idx._copy()
+    want_t, want_h = sharded_tensors(snap), sharded_host(idx)
+    out = {"shards": SHARD_S, "workers": [str(d) for d in mesh.devices], "pids": mesh.pids,
+           "rows_per_shard": counts.tolist(), "calls": {}}
+    log(f"[rollback] sharded: {SHARD_S} shards in {mesh.size} worker processes on "
+        f"{out['workers']}")
+    sharded = "diskann_tpu_torch.parallel.sharded"
+    for what, inject, args, fn in (
+            ("insert, shard 1's walk", worker_fail_step,
+             (sharded, "insert_batch_steps", 1, 3), lambda: idx.insert(new, new_assign)),
+            ("delete, shard 1's repair", worker_fail_step,
+             ("diskann_tpu_torch.graph.delete", "patch_rows_steps", 1, 1),
+             lambda: idx.delete(doomed)),
+            ("delete, shard 1's second packed refresh", worker_fail_refresh, (1, 2),
+             lambda: idx.delete(doomed))):
+        index_launches(k1, k2, idx, cards)
+        idx._run(inject, *args)
+        try:
             expect_injected(torch, fn)
-        launches = take_launches(k1, k2)
+        finally:
+            idx._run(worker_undo)
+        launches = launch_totals(index_launches(k1, k2, idx, cards))
         bad = differing(torch, sharded_tensors(idx), want_t)
         same = not bad and sharded_host(idx) == want_h
         log(f"[rollback] sharded {what}: kernel launches {launches}; every shard and "
@@ -3982,6 +4195,28 @@ def run_rollback_sharded(device, k1, k2) -> dict:
         if not same:
             raise RuntimeError(f"[rollback] sharded {what}: the index differs")
         out["calls"][what] = {"launches": launches}
+    # (the card's memory cap: a rehearsal on the CPU has none)
+    if device.type == "cuda":
+        what = (f"insert under a cap of the memory in use + {ROLLBACK_CAPS_MIB[0]} MiB "
+                "in every worker")
+        mesh.run(worker_memory_cap, ROLLBACK_CAPS_MIB[0])
+        try:
+            idx.insert(new, new_assign)
+        except torch.cuda.OutOfMemoryError as exc:
+            if "injected" in str(exc):
+                raise
+            raised = str(exc).split("\n")[0][:160]
+        else:
+            raise RuntimeError(f"[rollback] sharded {what}: no out-of-memory error")
+        finally:
+            mesh.run(worker_memory_cap, None)
+        bad = differing(torch, sharded_tensors(idx), want_t)
+        same = not bad and sharded_host(idx) == want_h
+        log(f"[rollback] sharded {what}: torch.cuda.OutOfMemoryError from a worker ({raised}); "
+            f"every shard and the bookkeeping bitwise as before {same} {bad}")
+        if not same:
+            raise RuntimeError(f"[rollback] sharded {what}: the index differs")
+        out["calls"][what] = {"raised": raised}
     idx.insert(new, new_assign)
     idx.delete(doomed)
     nwr = idx.packed[0].nwr
@@ -3991,7 +4226,7 @@ def run_rollback_sharded(device, k1, k2) -> dict:
         f"{retry} {bad}")
     if not retry:
         raise RuntimeError("[rollback] the sharded retry differs from the twin")
-    del idx, twin
+    del idx, twin, snap, want_t, mesh
     torch.cuda.empty_cache()
     return out
 

@@ -241,7 +241,8 @@ def sharded_index_from_arrays(
     "vocab": dict, "bits": [S, cap, n_words] uint32}``, or None.  dtype:
     the vectors' dtype, by default the array's own.  ``device``: one device
     for every shard (the CUDA card by default) or a sequence of one device
-    per shard, as for `ShardedGraphIndex.load`."""
+    per shard or a `Mesh`, as for `ShardedGraphIndex.load` (on a mesh, each
+    worker is sent its shards' slices)."""
     from diskann_tpu_torch.parallel.sharded import ShardedGraphIndex, _record_placement
 
     cfg = dict(config)
@@ -256,24 +257,20 @@ def sharded_index_from_arrays(
     if adjacency.shape != (n_shards, cap, cfg.max_degree_with_slack):
         raise ValueError(f"adjacency {adjacency.shape} does not match "
                          f"{n_shards} shards of {cap} x {cfg.max_degree_with_slack}")
-    devices = _record_placement(n_shards, device)
-    idx = ShardedGraphIndex(devices, vectors.shape[2], cfg, cap_per_shard=1, dtype=dtype)
-    idx._adopt_host({"vectors": vectors, "ext": np.array(ext), "starts": np.array(starts)}
-                    | {k: np.array(stacked[k]) for k in _GRAPH_DTYPES}, dtype)
-    idx.cap_per_shard = cap
+    idx = ShardedGraphIndex(_record_placement(n_shards, device), vectors.shape[2], cfg,
+                            cap_per_shard=1, dtype=dtype)
+    idx._adopt_host({"vectors": vectors, "ext": ext, "starts": np.asarray(starts)}
+                    | {k: np.asarray(stacked[k]) for k in _GRAPH_DTYPES})
     idx.ns = np.asarray(ns, np.int64).copy()
     idx.next_ext = int(next_ext)
     idx.n_deleted = int(n_deleted)
     idx._free_total = int(free_total)
     if packed is not None:
-        idx.packed = [
-            PackedState(**{f: _tensor(np.asarray(packed[f])[s], dt, dev)
-                           for f, dt in _PACKED_DTYPES.items()},
-                        r_pack=int(packed["r_pack"]))
-            for s, dev in enumerate(devices)]
+        idx._shards.adopt_packed([{f: np.asarray(packed[f])[s] for f in _PACKED_DTYPES}
+                                  for s in range(n_shards)], int(packed["r_pack"]))
+        idx._packed_dp = int(np.shape(packed["proj"])[-1])
     if labels is not None:
         idx._labels_per_ext = list(labels["labels_per_ext"])
         idx.label_vocab = dict(labels["vocab"])
-        idx.label_bits = [_tensor(np.asarray(labels["bits"])[s], torch.int32, dev)
-                          for s, dev in enumerate(devices)]
+        idx._shards.adopt_labels([np.asarray(labels["bits"])[s] for s in range(n_shards)])
     return idx

@@ -6,63 +6,75 @@
   live in several shards (overlap routing, as `parallel/partition.py`
   assigns it) and results are deduplicated by external id at merge time.
 - Placement, the counterpart of the reference's mesh: ``shards`` is an
-  int (every shard on ``device``) or a sequence of devices, one per shard
-  (shard ``s`` on ``shards[s]``; a card may hold several shards).
+  int (every shard on ``device``), a sequence of devices, one per shard
+  (shard ``s`` on ``shards[s]``; a card may hold several shards), or a
+  `parallel/mesh.Mesh` (shard ``s`` in its worker ``s``).  A sequence that
+  names more than one CUDA card runs on a `Mesh` of its distinct cards,
+  each card's shards in that card's worker process; any other placement
+  runs in the calling process.
 - Layout: per shard.  The reference stacks each `GraphArrays` field into
   one ``[n_shards, cap, ...]`` array that its mesh splits across devices;
-  a torch tensor lives on one device, so here each shard owns its own
-  `GraphArrays` (``arrays[s]``), ``ext[s]`` ([cap] int32 external ids),
-  ``starts[s]`` ([1] int32), ``label_bits[s]`` and ``packed[s]``, all on
-  ``devices[s]``; the high-water marks ``ns`` live on the host.  The one
-  layout serves both placements, and the record stacks the shards on the
-  host at save, so it stays the reference's.  The port's own per-index
-  calls run on a shard unchanged (`shard`): the stepping forms of
-  `graph/build.insert_batch`, `graph/search.beam_search` and
-  `beam_search_scored` and `graph/delete.patch_rows`, `graph/delete`'s
+  a torch tensor lives on one device, so each shard owns its own
+  `GraphArrays`, external ids ([cap] int32), start ([1] int32), label
+  bits and packed table, all on its device, held by a `_Shards`: one for
+  every shard in the calling process, or one per card in the card's
+  worker (`mesh.MeshShards` forwards the same calls there).  The
+  high-water marks ``ns`` and the counters live on the host, in the
+  calling process.  The record is written by each shard straight into
+  its slice of the stacked files, so it stays the reference's byte for
+  byte.  The port's own per-index calls run on a shard unchanged: the
+  stepping forms of `graph/build.insert_batch`, `graph/search.beam_search`
+  and `beam_search_scored` and `graph/delete.patch_rows`, `graph/delete`'s
   mark and `drop_deleted_rows`, and `graph/packed`'s `alloc_packed` /
   `encode` / `refresh_rows`.
-- Fan-out, the counterpart of `shard_map` (`_fan_out`): one host thread
-  drives every shard in lockstep.  A shard's work is a stepping generator
-  (`graph/steps.py`: the hop loop, the occlusion scan and the insert and
-  repair that compose them yield each "go on?" flag instead of reading
-  it); each round advances every shard to its next flag in shard order,
-  which queues that step on the shard's card, then copies the flags to
-  the host behind one event per card and sends each its answer.  So every
-  card runs its step while the host queues the others', and the host
-  waits once a round, on the slowest card.  This replaced one host
-  worker thread per card, whose threads handed Python's interpreter lock
-  back and forth on every op: each card sat idle ~93% of an insert call
-  (traced on four H100s), and four cards ran 3-5.7x slower than one.  The
-  one thread still issues every card's ops, so a call bound by the host's
-  issue rate (inserts, deletes, the packed walk) runs on four cards about
-  as fast as on one; the full-precision walk, with more device time per
-  op, gains (measured on four H100s).
+- Fan-out within a process, the counterpart of `shard_map` on the shards
+  one process holds (`_fan_out`): one host thread drives its shards in
+  lockstep.  A shard's work is a stepping generator (`graph/steps.py`:
+  the hop loop, the occlusion scan and the insert and repair that compose
+  them yield each "go on?" flag instead of reading it); each round
+  advances every shard to its next flag in shard order, which queues that
+  step on the shard's card, then copies the flags to the host behind one
+  event per card and sends each its answer.  On a mesh, each card's
+  worker runs this loop over its own shards, so every card has a host
+  thread of its own that issues only its ops: the counterpart of the
+  reference's one program per chip.  A command crosses to every worker
+  before any reply is read, and only the command and its result cross
+  processes.  (One thread issuing every card's ops ran inserts, deletes
+  and the packed walk on four cards about as fast as on one; threads in
+  one interpreter, handing its lock back and forth, left each card idle
+  ~93% of an insert call: both traced on four H100s.)
   Steps that make no host decision (attach, label scatter, grow, load,
   the flat scan) run each shard's function once, in shard order.  What
   still waits on a card inside a step is one-off per call: the free-slot
   and delete-membership `torch.nonzero` calls and the ``int(...)`` of
   their sizes here, `delete.mark_deleted`'s copy of the marked ids, and
   `insert_batch`'s boolean-mask writes and its overflow `torch.nonzero`.
-- Search uploads the queries once per device and call, runs each shard's
-  walk on its device, maps its ids to external ids there, and copies the
-  per-shard lists to the first device (the counterpart of `all_gather`),
-  where one lexicographic (distance, id) sort over the lists in shard
-  order puts overlap copies side by side (`_merge_topk_dedup`).  Deletes
-  send the dead ids to every device; each shard finds its copies by a
-  membership test of its ``ext`` column (no host id map), repairs the
-  referencing rows, and hands the slots to a freelist derived from
-  ``~valid`` below the high-water mark.
+- Search runs each shard's walk on its device, maps its ids to external
+  ids there, and brings the per-shard lists to the first device (the
+  counterpart of `all_gather`; from a worker by CUDA IPC and a peer copy,
+  or through the pipe from the host: `mesh.Mesh._transport`), where one
+  lexicographic (distance, id) sort over the lists in shard order puts
+  overlap copies side by side (`_merge_topk_dedup`).  Deletes send the
+  dead ids to every shard; each finds its copies by a membership test of
+  its ``ext`` column (no host id map), repairs the referencing rows, and
+  hands the slots to a freelist derived from ``~valid`` below the
+  high-water mark.
 - An insert or delete call commits on every shard or on none, as the
   reference's one ``shard_map`` program does (`_all_or_none`): each
-  shard writes through its own `RowJournal`, and when any shard raises,
-  `_fan_out` closes the others and every shard's journal is restored on
-  its device, the host bookkeeping with it.
+  shard writes through its own `RowJournal` and keeps it until the call
+  is settled.  When any shard raises, every shard's journal is restored
+  on its device (in every worker, those that finished too), and the host
+  bookkeeping with it; otherwise every journal is dropped.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
+import dataclasses
 import inspect
+import json
+import os
 import traceback
 
 import numpy as np
@@ -90,6 +102,9 @@ _QUERY_ROWS = 8192
 _HOST_DTYPES = {"sq_norms": torch.float32, "adjacency": torch.int32,
                 "degrees": torch.int32, "valid": torch.bool, "vec_sum": torch.float32,
                 "ext": torch.int32, "starts": torch.int32}
+# the record's arrays, in its order ("ns" is the host's)
+_RECORD = ("vectors", "sq_norms", "adjacency", "degrees", "valid", "vec_sum", "ext", "ns",
+           "starts")
 
 
 def _resolve(device) -> torch.device:
@@ -101,10 +116,17 @@ def _resolve(device) -> torch.device:
     return dev
 
 
+def _is_mesh(obj) -> bool:
+    from diskann_tpu_torch.parallel.mesh import Mesh
+
+    return isinstance(obj, Mesh)
+
+
 def _placement(shards, device=None) -> list[torch.device]:
     """One device per shard: ``shards`` an int puts every shard on
     ``device`` (the CUDA card by default); a sequence names each shard's
-    device and leaves ``device`` unset."""
+    device, and a `Mesh` puts shard ``s`` on its device ``s``; both leave
+    ``device`` unset."""
     if isinstance(shards, (int, np.integer)):
         if shards < 1:
             raise ValueError(f"n_shards must be >= 1, got {shards}")
@@ -112,21 +134,28 @@ def _placement(shards, device=None) -> list[torch.device]:
     if device is not None:
         raise ValueError("give the devices in `shards` or a shard count and `device`, "
                          "not both")
-    devs = [_resolve(d) for d in shards]
+    devs = [_resolve(d) for d in (shards.devices if _is_mesh(shards) else shards)]
     if not devs:
         raise ValueError("no shards")
     return devs
 
 
-def _record_placement(n_shards: int, device) -> list[torch.device]:
+def _spans_cards(devices: list) -> bool:
+    """Whether a device list runs on a mesh: it names more than one CUDA
+    card."""
+    return len({d for d in devices if d.type == "cuda"}) > 1
+
+
+def _record_placement(n_shards: int, device):
     """The placement of a record's ``n_shards`` shards: ``device`` is one
-    device (every shard on it) or a sequence of one device per shard."""
+    device (every shard on it), a sequence of one device per shard, or a
+    `Mesh` of one worker per shard."""
     if device is None or isinstance(device, (str, torch.device)):
         return _placement(n_shards, device)
     devs = _placement(device)
     if len(devs) != n_shards:
         raise ValueError(f"record has {n_shards} shards, {len(devs)} devices given")
-    return devs
+    return device if _is_mesh(device) else devs
 
 
 def _on(dev: torch.device):
@@ -208,6 +237,322 @@ def _merge_topk_dedup(all_d, all_i, k):
     return md[:, :k], mi[:, :k]
 
 
+def _record_layout(n_shards: int, cap: int, dim: int, r_slack: int, dtype) -> dict:
+    """The record's arrays: name -> (numpy dtype, shape of the stack)."""
+    host = graph_state.vectors_to_host(torch.empty(0, dtype=dtype)).dtype
+    return {"vectors": (host, (n_shards, cap, dim)),
+            "sq_norms": (np.float32, (n_shards, cap)),
+            "adjacency": (np.int32, (n_shards, cap, r_slack)),
+            "degrees": (np.int32, (n_shards, cap)), "valid": (np.bool_, (n_shards, cap)),
+            "vec_sum": (np.float32, (n_shards, dim)), "ext": (np.int32, (n_shards, cap)),
+            "ns": (np.int32, (n_shards,)), "starts": (np.int32, (n_shards, 1))}
+
+
+class _Shards:
+    """The device state of some shards of a `ShardedGraphIndex`, and the
+    work each call does on them: every shard, in the calling process, or
+    one card's shards, in that card's mesh worker (`parallel/mesh.py`).
+    ``ids`` are the shards' global numbers; a list passed in or returned
+    holds one entry per shard held here, in that order."""
+
+    def __init__(self, ids, devices, dim: int, config: GraphConfig, cap: int, dtype):
+        self.ids = list(ids)
+        self.devices = list(devices)
+        self.dim, self.config, self.cap, self.dtype = dim, config, cap, dtype
+        r_slack = config.max_degree_with_slack
+        self.arrays = [graph_state.alloc(cap, dim, r_slack, dtype, device=d)
+                       for d in self.devices]
+        self.starts = [torch.full((1,), -1, dtype=torch.int32, device=d) for d in self.devices]
+        self.ext = [torch.full((cap,), -1, dtype=torch.int32, device=d) for d in self.devices]
+        self.packed = None
+        self.label_bits = None
+        # a call's journals, the starts before it and its refreshed fat
+        # rows (a delete's), until `settle`
+        self._pending = None
+
+    def _fan_out(self, fn) -> list:
+        return _fan_out(self.devices, fn)
+
+    def copy(self) -> "_Shards":
+        """A copy on fresh tensors (the packed projection shared)."""
+        c = copy.copy(self)
+        c.arrays = [GraphArrays(*(t.clone() for t in st)) for st in self.arrays]
+        c.ext = [e.clone() for e in self.ext]
+        c.starts = [t.clone() for t in self.starts]
+        if self.packed is not None:
+            c.packed = [dataclasses.replace(p, self_codes=p.self_codes.clone(),
+                                            self_aux=p.self_aux.clone(), rows=p.rows.clone())
+                        for p in self.packed]
+        if self.label_bits is not None:
+            c.label_bits = [b.clone() for b in self.label_bits]
+        c._pending = None
+        return c
+
+    def fetch(self, name: str, s: int | None = None):
+        """Each shard's ``name`` ("arrays", "ext", "starts", "packed",
+        "label_bits"), or shard ``s``'s alone."""
+        got = getattr(self, name)
+        got = [None] * len(self.ids) if got is None else list(got)
+        return got if s is None else got[self.ids.index(s)]
+
+    def run(self, fn, *args) -> list:
+        return [fn(self, *args)]
+
+    # ---------------------------------------------------------------- grow
+    def grow(self, cap: int) -> None:
+        extra = cap - self.cap
+
+        def pad(i):
+            self.arrays[i] = graph_state.grow(self.arrays[i], cap)
+            self.ext[i] = torch.nn.functional.pad(self.ext[i], (0, extra), value=-1)
+
+        self._fan_out(pad)
+        self.cap = cap
+
+    # ---------------------------------------------- insert / delete, settled
+    def step(self, args: list, name: str) -> list:
+        """`_fan_out` of the call ``name`` ("insert" or "delete"), shard i
+        given ``args[i]`` and a `RowJournal` of its own, kept (with the
+        starts before the call) until `settle`."""
+        journals = [graph_state.RowJournal() for _ in self.devices]
+        refreshed = [[] for _ in self.devices] if name == "delete" else None
+        self._pending = (journals, list(self.starts), refreshed)
+        work = getattr(self, f"_{name}")
+        return self._fan_out(lambda i: work(i, journals[i], *args[i]))
+
+    def settle(self, ok: bool) -> None:
+        """Commit the pending call (drop its journals) or, with ``ok``
+        false, restore every shard's journal on its device, rebuild the fat
+        rows a delete refreshed, and put the starts back."""
+        journals, starts, refreshed = self._pending
+        self._pending = None
+        if ok:
+            for journal in journals:
+                journal.drop()
+            return
+        for i, (dev, journal) in enumerate(zip(self.devices, journals)):
+            with _on(dev):
+                journal.restore()
+                if refreshed is not None and self.packed is not None:
+                    delete_mod.rebuild_refreshed(self.packed[i], self.arrays[i].adjacency,
+                                                 refreshed[i])
+        self.starts = starts
+
+    def _insert(self, i: int, journal, n: int, rows):
+        """Shard i's part of an insert (``rows``: its vectors and external
+        ids, or None): its high-water mark after it."""
+        if rows is None:
+            return n
+        return self._insert_steps(i, journal, n, *rows)
+
+    def _insert_steps(self, i: int, journal, n: int, vectors, rext):
+        """A stepping generator: freed slots first, then the high-water
+        mark."""
+        dev = self.devices[i]
+        vecs = torch.from_numpy(vectors).to(dev)
+        rext = torch.from_numpy(rext).to(dev)
+        st = self.arrays[i]
+        m = vecs.shape[0]
+        free = torch.nonzero(~st.valid[:n]).squeeze(1)      # ascending
+        take = min(free.shape[0], m)
+        slots = torch.cat([free[:take], torch.arange(n, n + m - take, device=dev)])
+        slots = slots.to(torch.int32)
+        packed = self.packed[i] if self.packed is not None else None
+        yield from insert_batch_steps(st, slots, vecs,
+                                      torch.ones(m, dtype=torch.bool, device=dev),
+                                      self.starts[i], self.config, packed,
+                                      journal=journal)
+        journal.save(self.ext[i], slots.long())
+        self.ext[i][slots.long()] = rext
+        n = n + m - take
+        self.starts[i] = graph_state.medoid(st, n)[None]
+        return n
+
+    def _delete(self, i: int, journal, n: int, ext_ids):
+        """Shard i's part of a delete, a stepping generator: the slots it
+        marked."""
+        st = self.arrays[i]
+        hit = torch.isin(self.ext[i], torch.from_numpy(ext_ids).to(self.devices[i])) & st.valid
+        hit_rows = torch.nonzero(hit).squeeze(1)
+        marked = delete_mod.mark_deleted(st, hit_rows, journal=journal)
+        journal.save(self.ext[i], hit_rows)
+        self.ext[i].masked_fill_(hit, -1)
+        aff = delete_mod.rows_referencing_deleted(st)
+        rows = torch.nonzero(aff).squeeze(1)
+        dirty = torch.nonzero(aff | hit).squeeze(1) if self.packed is not None else None
+        for off in range(0, rows.shape[0], _DELETE_CHUNK):
+            yield from delete_mod.patch_rows_steps(st, rows[off:off + _DELETE_CHUNK],
+                                                   self.config, journal=journal)
+        delete_mod.drop_deleted_rows(st, journal=journal)
+        if dirty is not None:
+            delete_mod.refresh_chunks(self.packed[i], st.adjacency, dirty,
+                                      _DELETE_CHUNK, self._pending[2][i])
+        self.starts[i] = graph_state.medoid(st, n)[None]
+        return int(marked.shape[0])
+
+    # ---------------------------------------------------------------- packed
+    def train_rows(self, takes: list) -> list:
+        """The first ``takes[i]`` vectors of each shard, as float32 numpy."""
+        return [self.arrays[i].vectors[:t].float().cpu().numpy() for i, t in enumerate(takes)]
+
+    def attach_packed(self, proj, pscale, pbias2) -> None:
+        """Each shard's packed fat-row layout, built on its device with the
+        trained projection."""
+        self.packed = None      # free the old tables first
+        cap = self.cap
+        trained = {dev: tuple(torch.as_tensor(t).to(dev) for t in (proj, pscale, pbias2))
+                   for dev in dict.fromkeys(self.devices)}
+
+        def attach(i):
+            st = self.arrays[i]
+            ids = torch.arange(cap, device=self.devices[i])
+            p = packed_mod.alloc_packed(*trained[self.devices[i]], cap,
+                                        self.config.max_degree_with_slack)
+            codes, aux = packed_mod.encode(p, st.vectors, self.config.metric)
+            packed_mod.set_self_codes(p, ids, codes, aux)
+            for off in range(0, cap, _ATTACH_ROWS):
+                packed_mod.refresh_rows(p, st.adjacency, ids[off:off + _ATTACH_ROWS])
+            return p
+
+        self.packed = self._fan_out(attach)
+
+    # ---------------------------------------------------------------- labels
+    def scatter_labels(self, bits) -> None:
+        """Each shard's label rows, ``bits[e]`` at every slot of external id
+        e (none at empty slots)."""
+        bits = _per_device(self.devices, torch.as_tensor(bits))
+
+        def scatter(i):
+            e, b = self.ext[i], bits[self.devices[i]]
+            safe = e.long().clamp(0, b.shape[0] - 1)
+            return torch.where((e >= 0)[:, None], b[safe], 0)
+
+        self.label_bits = self._fan_out(scatter)
+
+    # ---------------------------------------------------------------- search
+    def walk(self, queries, mode: str, k: int, l: int, filt=None, dest=None) -> list:
+        """Each shard's (dists [B, k or L], EXTERNAL ids with -1 where
+        dropped, cmps [B]) for ``queries`` (mode "full", "packed" or
+        "filtered" with ``filt`` = (predicate, vocab, beta)), moved to
+        ``dest`` if given."""
+        cfg = self.config
+        q = _per_device(self.devices, torch.as_tensor(queries, dtype=torch.float32))
+        if mode == "packed":
+            def walk(i, st, qb):
+                p = self.packed[i]
+                sdef, sdata = packed_scorer(p, cfg.metric)
+                res = yield from beam_search_scored_steps(
+                    sdef, sdata, st.adjacency, self.starts[i], qb, l_search=l,
+                    beam_width=cfg.beam_width, max_hops=cfg.max_hops,
+                    dedup="merge", expand_r=p.r_pack,
+                )
+                # local full-precision rerank before the merge
+                safe = res.ids.long().clamp(0, self.cap - 1)
+                dd = distance_to_set(qb, st.vectors[safe], cfg.metric,
+                                     x_sq_norms=st.sq_norms[safe])
+                dd = torch.where((res.ids >= 0) & st.valid[safe], dd, float("inf"))
+                dd, ii = sort_with(dd, res.ids)
+                return dd[:, :k], ii[:, :k], res.cmps
+        elif mode == "full":
+            def walk(i, st, qb):
+                res = yield from beam_search_steps(
+                    st.vectors, st.sq_norms, st.adjacency, self.starts[i], qb,
+                    metric=cfg.metric, l_search=l, beam_width=cfg.beam_width,
+                    max_hops=cfg.max_hops)
+                return res.dists, res.ids, res.cmps
+        else:
+            from diskann_tpu_torch.filters import compile_accept
+
+            predicate, vocab, beta = filt
+            accept_fn = compile_accept(predicate, vocab, self.cap)
+
+            def walk(i, st, qb):
+                sdef, sdata = full_precision_scorer(st.vectors, st.sq_norms, cfg.metric)
+                res = yield from beam_search_scored_steps(
+                    sdef, sdata, st.adjacency, self.starts[i], qb, l_search=l,
+                    beam_width=cfg.beam_width, max_hops=cfg.max_hops,
+                    history_capacity=cfg.history_capacity(l), accept_fn=accept_fn,
+                    accept_data=self.label_bits[i], filter_beta=beta,
+                    filter_mode="inline",
+                )
+                return res.match_d, res.match_i, res.cmps
+
+        def one(i):
+            st = self.arrays[i]
+            d, ids, c = yield from walk(i, st, q[self.devices[i]])
+            safe = ids.long().clamp(0, self.cap - 1)
+            ok = (ids >= 0) & st.valid[safe]
+            out = (torch.where(ok, d, float("inf")), torch.where(ok, self.ext[i][safe], -1), c)
+            return out if dest is None else tuple(t.to(dest) for t in out)
+
+        return self._fan_out(one)
+
+    # -------------------------------------------------------------- save/load
+    def host_arrays(self) -> list:
+        """Each shard's record arrays on the host (all but "ns")."""
+        out = []
+        for st, e, s0 in zip(self.arrays, self.ext, self.starts):
+            a = {"vectors": graph_state.vectors_to_host(st.vectors)}
+            a |= {f: getattr(st, f).cpu().numpy()
+                  for f in ("sq_norms", "adjacency", "degrees", "valid", "vec_sum")}
+            out.append(a | {"ext": e.cpu().numpy(), "starts": s0.cpu().numpy()})
+        return out
+
+    def write_record(self, path: str) -> None:
+        """Write each shard's slice of the record's stacked files (made to
+        their full size by the caller) at its offset, one shard at a
+        time."""
+        for s, arrays in zip(self.ids, self.host_arrays()):
+            for name, a in arrays.items():
+                a = np.ascontiguousarray(a)
+                with open(os.path.join(path, f"{name}.bin"), "r+b") as f:
+                    f.seek(s * a.nbytes)
+                    a.tofile(f)
+
+    def read_record(self, path: str) -> None:
+        """Take each shard's slice of the record at ``path`` onto its
+        device (the files mapped, not read whole)."""
+        from diskann_tpu_torch.io_.record import load_record
+
+        _, arrays = load_record(path, mmap=True)
+        self.adopt([{name: np.array(arrays[name][s]) for name in _RECORD if name != "ns"}
+                    for s in self.ids])
+
+    def adopt(self, parts: list) -> None:
+        """Take each shard's record arrays (``parts[i]``: the `GraphArrays`
+        fields, "ext" and "starts", writable numpy arrays) onto its
+        device."""
+        def adopt(i):
+            dev, a = self.devices[i], parts[i]
+
+            def put(name):
+                return torch.from_numpy(np.ascontiguousarray(a[name])).to(dev, _HOST_DTYPES[name])
+
+            self.arrays[i] = GraphArrays(
+                vectors=graph_state.vectors_from_host(a["vectors"], self.dtype).to(dev),
+                **{f: put(f) for f in GraphArrays._fields if f != "vectors"})
+            self.ext[i] = put("ext")
+            self.starts[i] = put("starts").reshape(1)
+
+        self._fan_out(adopt)
+        self.cap = self.arrays[0].capacity
+
+    def adopt_packed(self, parts: list, r_pack: int) -> None:
+        """Each shard's packed table from the reference's (``parts[i]``:
+        the `PackedState` fields as numpy arrays)."""
+        from diskann_tpu_torch.convert import _PACKED_DTYPES, _tensor
+
+        self.packed = [packed_mod.PackedState(
+            **{f: _tensor(p[f], dt, dev) for f, dt in _PACKED_DTYPES.items()}, r_pack=r_pack)
+            for p, dev in zip(parts, self.devices)]
+
+    def adopt_labels(self, parts: list) -> None:
+        """Each shard's label rows from the reference's (uint32 words)."""
+        from diskann_tpu_torch.convert import _tensor
+
+        self.label_bits = [_tensor(b, torch.int32, dev) for b, dev in zip(parts, self.devices)]
+
+
 class ShardedGraphIndex:
     """A Vamana index partitioned into shards, each on its own device.
 
@@ -215,11 +560,11 @@ class ShardedGraphIndex:
     `search`); one external id may be stored in several shards (overlap
     routing), and deletes remove every copy."""
 
-    packed: list | None = None
-    label_bits: list | None = None
     label_vocab = None
     _labels_per_ext = None
     _labels_stale = False
+    # the packed width attached (None: no packed layout)
+    _packed_dp = None
 
     def __init__(
         self,
@@ -232,9 +577,11 @@ class ShardedGraphIndex:
         device=None,
     ):
         """``shards``: the shard count, every shard on ``device`` (the CUDA
-        card by default), or a sequence of devices, one per shard (shard
-        ``s`` on ``shards[s]``); ``dtype``: how the vectors are stored, as
-        for `GraphIndex`."""
+        card by default); a sequence of devices, one per shard (shard ``s``
+        on ``shards[s]``), which runs on a `Mesh` of its distinct cards when
+        it names more than one CUDA card; or a `Mesh`, one shard in each of
+        its workers.  ``dtype``: how the vectors are stored, as for
+        `GraphIndex`."""
         self.devices = _placement(shards, device)
         self.device = self.devices[0]          # where the shards' lists merge
         self.n_shards = len(self.devices)
@@ -242,16 +589,26 @@ class ShardedGraphIndex:
         self.dim = dim
         self.cap_per_shard = cap_per_shard
         self.dtype = graph_state.vector_dtype(dtype)
-        r_slack = self.config.max_degree_with_slack
-        self.arrays = [graph_state.alloc(cap_per_shard, dim, r_slack, self.dtype, device=d)
-                       for d in self.devices]
+        spec = dict(dim=dim, config=self.config, cap=cap_per_shard, dtype=self.dtype)
+        self.mesh = None
+        if _is_mesh(shards):
+            self.mesh = shards
+            workers = list(range(self.n_shards))
+        elif not isinstance(shards, (int, np.integer)) and _spans_cards(self.devices):
+            from diskann_tpu_torch.parallel.mesh import Mesh
+
+            cards = list(dict.fromkeys(self.devices))
+            self.mesh = Mesh(cards)
+            workers = [cards.index(d) for d in self.devices]
+        if self.mesh is None:
+            self._shards = _Shards(range(self.n_shards), self.devices, **spec)
+        else:
+            from diskann_tpu_torch.parallel.mesh import MeshShards
+
+            self._shards = MeshShards(self.mesh, workers, self.devices, **spec)
         # per-shard high-water marks, on the host (the reference keeps them
         # on the mesh)
         self.ns = np.zeros(self.n_shards, np.int64)
-        self.starts = [torch.full((1,), -1, dtype=torch.int32, device=d)
-                       for d in self.devices]
-        self.ext = [torch.full((cap_per_shard,), -1, dtype=torch.int32, device=d)
-                    for d in self.devices]
         self.next_ext = 0
         # no host-side external id -> slot map: a delete looks its ids up
         # on the devices, in the `ext` columns
@@ -260,54 +617,81 @@ class ShardedGraphIndex:
         # ~valid below its high-water mark)
         self._free_total = 0
 
+    # Each shard's state, by shard; on a mesh, views of (on the CPU, copies
+    # of) the worker's tensors, for reading only.
+    @property
+    def arrays(self) -> list:
+        return self._shards.fetch("arrays")
+
+    @property
+    def ext(self) -> list:
+        return self._shards.fetch("ext")
+
+    @property
+    def starts(self) -> list:
+        return self._shards.fetch("starts")
+
+    @property
+    def packed(self) -> list | None:
+        return None if self._packed_dp is None else self._shards.fetch("packed")
+
+    @property
+    def label_bits(self) -> list | None:
+        return None if self._labels_per_ext is None else self._shards.fetch("label_bits")
+
     def shard(self, s: int) -> GraphArrays:
-        """Shard ``s``'s arrays, on ``devices[s]``."""
-        return self.arrays[s]
+        """Shard ``s``'s arrays, on ``devices[s]`` (on a mesh, for reading
+        only)."""
+        return self._shards.fetch("arrays", s)
 
-    def _fan_out(self, fn) -> list:
-        return _fan_out(self.devices, fn)
+    def _run(self, fn, *args) -> list:
+        """``fn(shards, *args)`` on each `_Shards` of this index: the one in
+        this process, or each worker's (a function importable by name
+        there).  Returns the results, one per `_Shards`."""
+        return self._shards.run(fn, *args)
 
-    def _all_or_none(self, step, undo_packed=None) -> list:
-        """`_fan_out` of ``step(s, journal)``, each shard writing through
-        its own `RowJournal`.  If any shard raises, every shard's journal
-        is restored under its device (shards that had finished too), then
-        ``undo_packed(s)`` runs on each, and the host bookkeeping (``ns``,
-        ``starts``, ``next_ext``, ``n_deleted``, ``_free_total``) is put
-        back before the exception is re-raised."""
-        journals = [graph_state.RowJournal() for _ in self.devices]
-        host = (self.ns.copy(), list(self.starts), self.next_ext, self.n_deleted,
-                self._free_total)
+    def _copy(self) -> "ShardedGraphIndex":
+        """A copy on fresh tensors (on a mesh, in the same workers)."""
+        c = copy.copy(self)
+        c.ns = self.ns.copy()
+        c._shards = self._shards.copy()
+        if self._labels_per_ext is not None:
+            c._labels_per_ext = list(self._labels_per_ext)
+        return c
+
+    def _all_or_none(self, name: str, args: list) -> list:
+        """The call ``name`` on every shard (``args[s]``: shard s's
+        arguments), each writing through its own `RowJournal`, then
+        settled: committed on every shard if none raised; else every
+        shard's journal restored (shards that had finished too, in every
+        worker), the fat rows a delete refreshed rebuilt, and the host
+        bookkeeping (``ns``, ``next_ext``, ``n_deleted``, ``_free_total``)
+        put back before the exception is re-raised."""
+        host = (self.ns.copy(), self.next_ext, self.n_deleted, self._free_total)
         try:
-            return self._fan_out(lambda s: step(s, journals[s]))
+            out = self._shards.step(args, name)
         except BaseException as exc:
             # free the failed steps' temporaries before the restore
             traceback.clear_frames(exc.__traceback__)
-            for s, (dev, journal) in enumerate(zip(self.devices, journals)):
-                with _on(dev):
-                    journal.restore()
-                    if undo_packed is not None:
-                        undo_packed(s)
-            (self.ns, self.starts, self.next_ext, self.n_deleted,
-             self._free_total) = host
+            try:
+                self._shards.settle(False)
+            finally:
+                self.ns, self.next_ext, self.n_deleted, self._free_total = host
             raise
+        self._shards.settle(True)
+        return out
 
     # ------------------------------------------------------------------ grow
     def grow(self, new_cap_per_shard: int) -> None:
         """Grow every shard's capacity (pad its arrays); an attached packed
         layout is rebuilt."""
-        extra = new_cap_per_shard - self.cap_per_shard
-        if extra <= 0:
+        if new_cap_per_shard <= self.cap_per_shard:
             return
-
-        def pad(s):
-            self.arrays[s] = graph_state.grow(self.arrays[s], new_cap_per_shard)
-            self.ext[s] = torch.nn.functional.pad(self.ext[s], (0, extra), value=-1)
-
-        self._fan_out(pad)
+        self._shards.grow(new_cap_per_shard)
         self.cap_per_shard = new_cap_per_shard
         self._labels_stale = True
-        if self.packed is not None:
-            self.attach_packed(dp=int(self.packed[0].dp))
+        if self._packed_dp is not None:
+            self.attach_packed(dp=self._packed_dp)
 
     # ---------------------------------------------------------------- insert
     def insert(
@@ -358,40 +742,14 @@ class ShardedGraphIndex:
         if len(pair_s):
             bounds = np.concatenate([[0], np.cumsum(counts)])
             rext = ext_ids.astype(np.int32)
-
-            def insert(s, journal):
+            args = []
+            for s in range(self.n_shards):
                 rows = pair_j[bounds[s]:bounds[s + 1]]
-                if len(rows):
-                    dev = self.devices[s]
-                    return self._insert_steps(s, torch.from_numpy(vectors[rows]).to(dev),
-                                              torch.from_numpy(rext[rows]).to(dev), journal)
-
-            self._all_or_none(insert)
+                args.append((int(self.ns[s]), (vectors[rows], rext[rows]) if len(rows) else None))
+            self.ns = np.asarray(self._all_or_none("insert", args), np.int64)
         self.next_ext += m
         self._labels_stale = True
         return ext_ids
-
-    def _insert_steps(self, s: int, vecs: torch.Tensor, rext: torch.Tensor,
-                      journal: graph_state.RowJournal):
-        """Shard ``s``'s part of an insert, a stepping generator: freed
-        slots first, then the high-water mark."""
-        st = self.shard(s)
-        dev = self.devices[s]
-        n = int(self.ns[s])
-        m = vecs.shape[0]
-        free = torch.nonzero(~st.valid[:n]).squeeze(1)      # ascending
-        take = min(free.shape[0], m)
-        slots = torch.cat([free[:take], torch.arange(n, n + m - take, device=dev)])
-        slots = slots.to(torch.int32)
-        packed = self.packed[s] if self.packed is not None else None
-        yield from insert_batch_steps(st, slots, vecs,
-                                      torch.ones(m, dtype=torch.bool, device=dev),
-                                      self.starts[s], self.config, packed,
-                                      journal=journal)
-        journal.save(self.ext[s], slots.long())
-        self.ext[s][slots.long()] = rext
-        self.ns[s] = n + m - take
-        self.starts[s] = graph_state.medoid(st, int(self.ns[s]))[None]
 
     # ---------------------------------------------------------------- delete
     def delete(self, ext_ids) -> None:
@@ -413,34 +771,8 @@ class ShardedGraphIndex:
         ext_ids = np.unique(np.asarray(ext_ids).ravel().astype(np.int32))
         if len(ext_ids) == 0:
             return
-        dead = _per_device(self.devices, torch.from_numpy(ext_ids))
-        refreshed = [[] for _ in self.devices]      # fat rows rewritten, per shard
-
-        def delete(s, journal):
-            st = self.shard(s)
-            hit = torch.isin(self.ext[s], dead[self.devices[s]]) & st.valid
-            hit_rows = torch.nonzero(hit).squeeze(1)
-            marked = delete_mod.mark_deleted(st, hit_rows, journal=journal)
-            journal.save(self.ext[s], hit_rows)
-            self.ext[s].masked_fill_(hit, -1)
-            aff = delete_mod.rows_referencing_deleted(st)
-            rows = torch.nonzero(aff).squeeze(1)
-            dirty = torch.nonzero(aff | hit).squeeze(1) if self.packed is not None else None
-            for off in range(0, rows.shape[0], _DELETE_CHUNK):
-                yield from delete_mod.patch_rows_steps(st, rows[off:off + _DELETE_CHUNK],
-                                                       self.config, journal=journal)
-            delete_mod.drop_deleted_rows(st, journal=journal)
-            if dirty is not None:
-                delete_mod.refresh_chunks(self.packed[s], st.adjacency, dirty,
-                                          _DELETE_CHUNK, refreshed[s])
-            self.starts[s] = graph_state.medoid(st, int(self.ns[s]))[None]
-            return int(marked.shape[0])
-
-        def undo_packed(s):
-            delete_mod.rebuild_refreshed(self.packed[s], self.arrays[s].adjacency,
-                                         refreshed[s])
-
-        self._free_total += sum(self._all_or_none(delete, undo_packed))
+        args = [(int(n), ext_ids) for n in self.ns]
+        self._free_total += sum(self._all_or_none("delete", args))
         self.n_deleted += len(ext_ids)
 
     # ---------------------------------------------------------------- packed
@@ -451,31 +783,18 @@ class ShardedGraphIndex:
         shard's front."""
         if train_sample is None:
             per = max(1, int(np.ceil(256 / max(self.n_shards, 1))))
-            parts = [self.arrays[s].vectors[: min(int(n_s), per)].float().cpu().numpy()
-                     for s, n_s in enumerate(self.ns) if n_s > 0]
+            parts = [p for p, n_s in zip(
+                self._shards.train_rows([min(int(n_s), per) for n_s in self.ns]), self.ns)
+                if n_s > 0]
             train_sample = (np.concatenate(parts, axis=0) if parts
                             else np.zeros((1, self.dim), np.float32))
         proj, pscale, pbias2 = packed_mod.train_packed(
             np.asarray(train_sample, np.float32), min(dp, self.dim),
             self.config.metric, device=self.device,
         )
-        self.packed = None      # free the old tables first
-        cap = self.cap_per_shard
-        trained = {dev: (proj.to(dev), pscale.to(dev), pbias2.to(dev))
-                   for dev in dict.fromkeys(self.devices)}
-
-        def attach(s):
-            st = self.shard(s)
-            ids = torch.arange(cap, device=self.devices[s])
-            p = packed_mod.alloc_packed(*trained[self.devices[s]], cap,
-                                        self.config.max_degree_with_slack)
-            codes, aux = packed_mod.encode(p, st.vectors, self.config.metric)
-            packed_mod.set_self_codes(p, ids, codes, aux)
-            for off in range(0, cap, _ATTACH_ROWS):
-                packed_mod.refresh_rows(p, st.adjacency, ids[off:off + _ATTACH_ROWS])
-            return p
-
-        self.packed = self._fan_out(attach)
+        self._packed_dp = None
+        self._shards.attach_packed(proj, pscale, pbias2)
+        self._packed_dp = int(proj.shape[1])
 
     # ---------------------------------------------------------------- labels
     def attach_labels(self, labels_per_ext: list) -> None:
@@ -499,36 +818,20 @@ class ShardedGraphIndex:
             lists = lists + [[] for _ in range(n_ext - len(lists))]
         ls = LabelSet.from_lists(lists, capacity=n_ext, device=self.device)
         self.label_vocab = ls.vocab
-        bits = _per_device(self.devices, ls.bits)
-
-        def scatter(s):
-            e, b = self.ext[s], bits[self.devices[s]]
-            safe = e.long().clamp(0, b.shape[0] - 1)
-            return torch.where((e >= 0)[:, None], b[safe], 0)
-
-        self.label_bits = self._fan_out(scatter)
+        self._shards.scatter_labels(ls.bits)
         self._labels_stale = False
 
     # ---------------------------------------------------------------- search
-    def _merged(self, queries, k, walk):
-        """Run ``walk(s, shard, queries)``, a stepping generator returning
-        (dists [B, L], local ids [B, L] with -1 where dropped, cmps [B]),
-        on every shard, on its device, in lockstep (`_fan_out`),
-        map the ids to external ids and merge the lists on the first
-        device.  Returns host (dists, ids, cmps summed over the shards)."""
-        q = _per_device(self.devices, torch.as_tensor(queries, dtype=torch.float32))
+    def _merged(self, queries, k, mode, l, filt=None):
+        """Run every shard's walk of ``mode`` (`_Shards.walk`) on its
+        device, in lockstep within each process, bring the lists to the
+        first device and merge them there.  Returns host (dists, ids, cmps
+        summed over the shards)."""
+        q = queries if isinstance(queries, torch.Tensor) else np.asarray(queries, np.float32)
         outs = []
-        for off in range(0, q[self.device].shape[0], _QUERY_ROWS):
-            def one(s, off=off):
-                st = self.shard(s)
-                d, ids, c = yield from walk(s, st, q[self.devices[s]][off:off + _QUERY_ROWS])
-                safe = ids.long().clamp(0, self.cap_per_shard - 1)
-                ok = (ids >= 0) & st.valid[safe]
-                return tuple(t.to(self.device) for t in (
-                    torch.where(ok, d, float("inf")),
-                    torch.where(ok, self.ext[s][safe], -1), c))
-
-            all_d, all_i, cmps = zip(*self._fan_out(one))
+        for off in range(0, q.shape[0], _QUERY_ROWS):
+            lists = self._shards.walk(q[off:off + _QUERY_ROWS], mode, k, l, filt, self.device)
+            all_d, all_i, cmps = zip(*lists)
             md, mi = _merge_topk_dedup(torch.stack(all_d), torch.stack(all_i), k)
             outs.append((md, mi, sum(cmps)))
         return tuple(torch.cat(t).cpu().numpy() for t in zip(*outs))
@@ -540,36 +843,11 @@ class ShardedGraphIndex:
         (attaching one first if needed) and reranks its list at full
         precision before the merge."""
         l = l_search or max(k, self.config.l_build)
-        cfg = self.config
-        if mode == "packed":
-            if self.packed is None:
-                self.attach_packed()
-
-            def walk(s, st, qb):
-                p = self.packed[s]
-                sdef, sdata = packed_scorer(p, cfg.metric)
-                res = yield from beam_search_scored_steps(
-                    sdef, sdata, st.adjacency, self.starts[s], qb, l_search=l,
-                    beam_width=cfg.beam_width, max_hops=cfg.max_hops,
-                    dedup="merge", expand_r=p.r_pack,
-                )
-                # local full-precision rerank before the merge
-                safe = res.ids.long().clamp(0, self.cap_per_shard - 1)
-                dd = distance_to_set(qb, st.vectors[safe], cfg.metric,
-                                     x_sq_norms=st.sq_norms[safe])
-                dd = torch.where((res.ids >= 0) & st.valid[safe], dd, float("inf"))
-                dd, ii = sort_with(dd, res.ids)
-                return dd[:, :k], ii[:, :k], res.cmps
-        elif mode == "full":
-            def walk(s, st, qb):
-                res = yield from beam_search_steps(
-                    st.vectors, st.sq_norms, st.adjacency, self.starts[s], qb,
-                    metric=cfg.metric, l_search=l, beam_width=cfg.beam_width,
-                    max_hops=cfg.max_hops)
-                return res.dists, res.ids, res.cmps
-        else:
+        if mode not in ("full", "packed"):
             raise ValueError(f"unknown search mode {mode!r}")
-        return self._merged(queries, k, walk)
+        if mode == "packed" and self._packed_dp is None:
+            self.attach_packed()
+        return self._merged(queries, k, mode, l)
 
     def search_filtered(self, queries, predicate, k: int = 10, *,
                         l_search: int | None = None,
@@ -577,31 +855,17 @@ class ShardedGraphIndex:
         """Label-filtered k-NN over every shard (the inline beta filter;
         the matched lists merge with external-id dedup).  Returns (true
         dists [B,k], EXTERNAL ids [B,k], cmps [B] summed over the shards)."""
-        from diskann_tpu_torch.filters import compile_accept, parse_predicate
+        from diskann_tpu_torch.filters import parse_predicate
 
-        if self.label_bits is None:
+        if self._labels_per_ext is None:
             raise ValueError("attach_labels first")
         if self._labels_stale:
             self._rebuild_label_bits()
         if isinstance(predicate, str):
             predicate = parse_predicate(predicate)
-        accept_fn = compile_accept(predicate, self.label_vocab, self.cap_per_shard)
         l = l_search or max(k, self.config.l_build)
-        cfg = self.config
         beta = filter_beta if filter_beta is not None else 0.5
-
-        def walk(s, st, qb):
-            sdef, sdata = full_precision_scorer(st.vectors, st.sq_norms, cfg.metric)
-            res = yield from beam_search_scored_steps(
-                sdef, sdata, st.adjacency, self.starts[s], qb, l_search=l,
-                beam_width=cfg.beam_width, max_hops=cfg.max_hops,
-                history_capacity=cfg.history_capacity(l), accept_fn=accept_fn,
-                accept_data=self.label_bits[s], filter_beta=beta,
-                filter_mode="inline",
-            )
-            return res.match_d, res.match_i, res.cmps
-
-        return self._merged(queries, k, walk)
+        return self._merged(queries, k, "filtered", l, (predicate, self.label_vocab, beta))
 
     def search_range(self, queries, radius: float, *,
                      l_init: int | None = None, l_max: int = 1024):
@@ -615,58 +879,67 @@ class ShardedGraphIndex:
     def _host_arrays(self) -> dict:
         """The record's arrays: each shard's tensors stacked on the host
         into the reference's ``[n_shards, ...]`` layout."""
-        stack = lambda ts: np.stack([t.cpu().numpy() for t in ts])  # noqa: E731
-        field = lambda f: [getattr(st, f) for st in self.arrays]  # noqa: E731
-        out = {"vectors": np.stack([graph_state.vectors_to_host(v)
-                                    for v in field("vectors")])}
-        out |= {f: stack(field(f))
-                for f in ("sq_norms", "adjacency", "degrees", "valid", "vec_sum")}
-        out |= {"ext": stack(self.ext), "ns": self.ns.astype(np.int32),
-                "starts": stack(self.starts)}
-        return out
+        parts = self._shards.host_arrays()
+        out = {name: np.stack([p[name] for p in parts]) for name in _RECORD if name != "ns"}
+        out["ns"] = self.ns.astype(np.int32)
+        return {name: out[name] for name in _RECORD}
 
     def save(self, path: str) -> None:
         """Persist all shards and the external ids in the reference's record
         (kind "sharded_graph_index": the stacked arrays, the eight config
-        fields it writes); either package loads it.  Packed layouts and
-        labels are not saved, as in the reference."""
-        from diskann_tpu_torch.io_.record import save_record
+        fields it writes); either package loads it.  Each shard writes its
+        slice of the stacked files from its own process.  Packed layouts
+        and labels are not saved, as in the reference."""
+        from diskann_tpu_torch.io_.record import FORMAT_VERSION
 
         cfg = self.config
-        save_record(
-            path,
-            kind="sharded_graph_index",
-            meta={
-                "n_shards": self.n_shards,
-                "dim": self.dim,
-                "cap_per_shard": self.cap_per_shard,
-                "next_ext": self.next_ext,
-                "n_deleted": self.n_deleted,
-                "free_total": self._free_total,
-                "config": {
-                    "max_degree": cfg.max_degree,
-                    "l_build": cfg.l_build,
-                    "alpha": cfg.alpha,
-                    "graph_slack_factor": cfg.graph_slack_factor,
-                    "max_occlusion_size": cfg.max_occlusion_size,
-                    "saturate_after_prune": cfg.saturate_after_prune,
-                    "metric": cfg.metric.value,
-                    "beam_width": cfg.beam_width,
-                },
+        layout = _record_layout(self.n_shards, self.cap_per_shard, self.dim,
+                                cfg.max_degree_with_slack, self.dtype)
+        os.makedirs(path, exist_ok=True)
+        for name, (dt, shape) in layout.items():
+            with open(os.path.join(path, f"{name}.bin"), "wb") as f:
+                f.truncate(int(np.prod(shape)) * np.dtype(dt).itemsize)
+        self.ns.astype(np.int32).tofile(os.path.join(path, "ns.bin"))
+        self._shards.write_record(path)
+        meta = {
+            "n_shards": self.n_shards,
+            "dim": self.dim,
+            "cap_per_shard": self.cap_per_shard,
+            "next_ext": self.next_ext,
+            "n_deleted": self.n_deleted,
+            "free_total": self._free_total,
+            "config": {
+                "max_degree": cfg.max_degree,
+                "l_build": cfg.l_build,
+                "alpha": cfg.alpha,
+                "graph_slack_factor": cfg.graph_slack_factor,
+                "max_occlusion_size": cfg.max_occlusion_size,
+                "saturate_after_prune": cfg.saturate_after_prune,
+                "metric": cfg.metric.value,
+                "beam_width": cfg.beam_width,
             },
-            arrays=self._host_arrays(),
-            bfloat16=("vectors",) if self.dtype == torch.bfloat16 else (),
-        )
+        }
+        artifacts = {name: {"file": f"{name}.bin",
+                            "dtype": ("bfloat16" if name == "vectors"
+                                      and self.dtype == torch.bfloat16 else str(np.dtype(dt))),
+                            "shape": list(shape)}
+                     for name, (dt, shape) in layout.items()}
+        # the manifest `io_.record.save_record` writes after its artifacts
+        with open(os.path.join(path, "manifest.json"), "w") as f:
+            json.dump({"format_version": FORMAT_VERSION, "kind": "sharded_graph_index",
+                       "meta": meta, "artifacts": artifacts}, f, indent=2)
 
     @classmethod
     def load(cls, path: str, *, device=None) -> "ShardedGraphIndex":
         """Load a record written by `save` (of either package) with the
         record's shard count and vector dtype.  ``device``: one device for
-        every shard (the CUDA card by default) or a sequence of one device
-        per shard, which must match the record's shard count."""
+        every shard (the CUDA card by default), a sequence of one device
+        per shard, which must match the record's shard count (more than one
+        CUDA card: on a `Mesh`, each worker reading its shards' slices of
+        the files), or a `Mesh` of one worker per shard."""
         from diskann_tpu_torch.io_.record import load_record
 
-        manifest, arrays = load_record(path)
+        manifest, arrays = load_record(path, mmap=True)
         meta = manifest["meta"]
         c = meta["config"]
         cfg = GraphConfig(
@@ -682,7 +955,7 @@ class ShardedGraphIndex:
         dtype = manifest["artifacts"]["vectors"]["dtype"]
         idx = cls(_record_placement(meta["n_shards"], device), meta["dim"], cfg,
                   cap_per_shard=1, dtype=dtype)
-        idx._adopt_host(arrays, dtype)
+        idx._shards.read_record(path)
         idx.cap_per_shard = int(meta["cap_per_shard"])
         idx.ns = np.asarray(arrays["ns"], np.int64).copy()
         idx.next_ext = int(meta["next_ext"])
@@ -690,24 +963,13 @@ class ShardedGraphIndex:
         idx._free_total = int(meta.get("free_total", 0))
         return idx
 
-    def _adopt_host(self, arrays: dict, dtype=None) -> None:
+    def _adopt_host(self, arrays: dict) -> None:
         """Take each shard's slice of the stacked host ``arrays`` (the
-        record's `GraphArrays` fields, ``ext`` and ``starts``, writable
-        numpy arrays) onto its device."""
-        def adopt(s):
-            dev = self.devices[s]
-
-            def put(name):
-                a = np.ascontiguousarray(arrays[name][s])
-                return torch.from_numpy(a).to(dev, _HOST_DTYPES[name])
-
-            self.arrays[s] = GraphArrays(
-                vectors=graph_state.vectors_from_host(arrays["vectors"][s], dtype).to(dev),
-                **{f: put(f) for f in GraphArrays._fields if f != "vectors"})
-            self.ext[s] = put("ext")
-            self.starts[s] = put("starts").reshape(1)
-
-        self._fan_out(adopt)
+        record's `GraphArrays` fields, ``ext`` and ``starts``) onto its
+        device."""
+        self._shards.adopt([{name: np.array(a[s]) for name, a in arrays.items()}
+                            for s in range(self.n_shards)])
+        self.cap_per_shard = int(np.shape(arrays["ext"])[1])
 
 
 def sharded_flat_search(shards, vectors, queries, k: int,
@@ -716,7 +978,8 @@ def sharded_flat_search(shards, vectors, queries, k: int,
     each block's distances and local top-k on its device, then a merge of
     the blocks' lists on the first device.  Equal distances keep
     ascending id order (each block's top-k does, the blocks are in id
-    order and the merge sort is stable), as `FlatIndex` does.
+    order and the merge sort is stable), as `FlatIndex` does.  It holds no
+    state, so it runs in the calling process on every placement.
 
     ``shards``: the block count, every block on ``device`` (default: the
     vectors' device if a tensor, else the CUDA card), or a sequence of

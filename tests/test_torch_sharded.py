@@ -49,7 +49,7 @@ from diskann_tpu_torch.parallel.sharded import _fan_out
 from diskann_tpu_torch.parallel.partition import (
     estimate_build_ram_bytes, kmeans_partition, shard_lists,
 )
-from torch_port_helpers import CPU, jax_sharded_arrays
+from torch_port_helpers import CPU, assert_same_results, jax_sharded_arrays, lifecycle
 
 S = 4          # the port's own indexes
 CFG = dict(max_degree=16, l_build=32)
@@ -398,54 +398,14 @@ def test_sharded_delete_of_start_node_and_packed_mirror(rng):
 PLACEMENTS = {"one_worker": [CPU] * S, "two_workers": ["cpu", "cpu:0"] * (S // 2)}
 
 
-def _lifecycle(shards, tmp, **kw):
-    """Every operation of the index, on ``shards`` (an int and ``kw``, or a
-    device list): each result, and the record's files, by name."""
-    rng = np.random.default_rng(31)
-    x, centers = _clustered(rng, 600, 16)
-    q = _queries(rng, centers, 24)
-    idx = ShardedGraphIndex(shards, 16, GraphConfig(**CFG), cap_per_shard=128, **kw)
-    out = {}
-    idx.insert(x[:400], np.stack([np.arange(400) % S, (np.arange(400) + 1) % S], 1))
-    out["grown_cap"] = np.array(idx.cap_per_shard)          # 200 rows a shard: grew
-    idx.attach_packed(dp=16, train_sample=x[:256])
-    idx.attach_labels([["red"] if i % 3 else ["blue"] for i in range(600)])
-    for mode in ("full", "packed"):
-        out[mode] = idx.search(q, k=10, l_search=32, mode=mode)
-    out["filtered"] = idx.search_filtered(q, "blue", k=10, l_search=40)
-    dall = ((q[:, None, :] - x[None, :400, :]) ** 2).sum(-1)
-    out["range"] = idx.search_range(q[:6], float(np.quantile(dall, 0.01)), l_init=32)
-    idx.delete(np.arange(0, 400, 7))
-    idx.insert(x[400:])                      # recycles the freed slots
-    for mode in ("full", "packed"):
-        out[f"after_{mode}"] = idx.search(q, k=10, l_search=32, mode=mode)
-    out["free_total"] = np.array(idx._free_total)
-    idx.save(str(tmp))
-    out["record"] = {f.name: f.read_bytes() for f in sorted(tmp.iterdir())}
-    dev = shards if kw.get("device") is None else kw["device"]
-    re = ShardedGraphIndex.load(str(tmp), device=dev)
-    out["reloaded"] = re.search(q, k=10, l_search=32)
-    return out
-
-
 @pytest.fixture(scope="module")
 def int_form(tmp_path_factory):
-    return _lifecycle(S, tmp_path_factory.mktemp("int_form"), device=CPU)
+    return lifecycle(S, tmp_path_factory.mktemp("int_form"), device=CPU)
 
 
 @pytest.mark.parametrize("placement", list(PLACEMENTS))
 def test_device_list_matches_the_int_form(int_form, placement, tmp_path):
-    got = _lifecycle(PLACEMENTS[placement], tmp_path)
-    assert got.pop("record") == int_form["record"]
-    for key, want in int_form.items():
-        if key == "record":
-            continue
-        if isinstance(want, np.ndarray):
-            np.testing.assert_array_equal(got[key], want, err_msg=key)
-            continue
-        assert len(got[key]) == len(want), key       # (dists, ids, cmps) or range lists
-        for g, w in zip(got[key], want):
-            np.testing.assert_array_equal(g, w, err_msg=key)
+    assert_same_results(lifecycle(PLACEMENTS[placement], tmp_path), int_form)
 
 
 @pytest.mark.parametrize("placement", list(PLACEMENTS))

@@ -8,6 +8,7 @@ arrays; `jax_index_arrays` pulls the arrays of a JAX `GraphIndex` out for
 from __future__ import annotations
 
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -129,3 +130,126 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA kernel has no CPU mode)")
     return torch.device("cuda", 0)
+
+
+# ------------------------------------------------- the sharded index's lifecycle
+def lifecycle(shards, tmp, **kw):
+    """Every operation of a `ShardedGraphIndex` (R=16, L=32), on ``shards``
+    (an int and ``kw``, a device list or a `Mesh`): each result, and the
+    record's files, by name."""
+    from diskann_tpu_torch import GraphConfig
+    from diskann_tpu_torch.parallel import ShardedGraphIndex
+
+    rng = np.random.default_rng(31)
+    centers = rng.standard_normal((24, 16)).astype(np.float32)
+    x = centers[rng.integers(0, 24, size=600)] + 0.1 * rng.standard_normal(
+        (600, 16)).astype(np.float32)
+    q = centers[rng.integers(0, 24, size=24)] + 0.1 * rng.standard_normal(
+        (24, 16)).astype(np.float32)
+    idx = ShardedGraphIndex(shards, 16, GraphConfig(max_degree=16, l_build=32),
+                            cap_per_shard=128, **kw)
+    s_count = idx.n_shards
+    out = {}
+    idx.insert(x[:400], np.stack([np.arange(400) % s_count, (np.arange(400) + 1) % s_count], 1))
+    out["grown_cap"] = np.array(idx.cap_per_shard)          # 200 rows a shard: grew
+    idx.attach_packed(dp=16, train_sample=x[:256])
+    idx.attach_labels([["red"] if i % 3 else ["blue"] for i in range(600)])
+    for mode in ("full", "packed"):
+        out[mode] = idx.search(q, k=10, l_search=32, mode=mode)
+    out["filtered"] = idx.search_filtered(q, "blue", k=10, l_search=40)
+    dall = ((q[:, None, :] - x[None, :400, :]) ** 2).sum(-1)
+    out["range"] = idx.search_range(q[:6], float(np.quantile(dall, 0.01)), l_init=32)
+    idx.delete(np.arange(0, 400, 7))
+    idx.insert(x[400:])                      # recycles the freed slots
+    for mode in ("full", "packed"):
+        out[f"after_{mode}"] = idx.search(q, k=10, l_search=32, mode=mode)
+    out["free_total"] = np.array(idx._free_total)
+    idx.save(str(tmp))
+    out["record"] = {f.name: f.read_bytes() for f in sorted(tmp.iterdir())}
+    dev = shards if kw.get("device") is None else kw["device"]
+    re = ShardedGraphIndex.load(str(tmp), device=dev)
+    out["reloaded"] = re.search(q, k=10, l_search=32)
+    return out
+
+
+def assert_same_results(got: dict, want: dict) -> None:
+    """Two `lifecycle` outputs bitwise equal, the record byte for byte."""
+    assert got.keys() == want.keys()
+    assert got["record"] == want["record"]
+    for key, w in want.items():
+        if key == "record":
+            continue
+        if isinstance(w, np.ndarray):
+            np.testing.assert_array_equal(got[key], w, err_msg=key)
+            continue
+        assert len(got[key]) == len(w), key       # (dists, ids, cmps) or range lists
+        for g, ww in zip(got[key], w):
+            np.testing.assert_array_equal(g, ww, err_msg=key)
+
+
+# ------------------------------- failures injected where a shard's work runs
+# A monkeypatch in the test's process does not reach a mesh worker; these
+# run through `ShardedGraphIndex._run`, in each worker (or in process), and
+# patch that process's modules.
+_INJECTED: list = []
+
+
+def _patch(module, name: str, value) -> None:
+    _INJECTED.append((module, name, getattr(module, name)))
+    setattr(module, name, value)
+
+
+def inject_step_failure(shards, module: str, name: str, s: int, after_flags: int) -> None:
+    """Make the stepping generator function ``module.name`` (its first
+    argument a shard's `GraphArrays`) raise an injected out-of-memory
+    error after ``after_flags`` flags on shard ``s``, where it is held."""
+    mod = importlib.import_module(module)
+    orig = getattr(mod, name)
+    if s not in shards.ids:
+        return
+    target = shards.arrays[shards.ids.index(s)]
+
+    def failing(st, *a, **k):
+        gen = orig(st, *a, **k)
+        if st is not target:
+            return (yield from gen)
+        answer = None
+        for _ in range(after_flags):
+            answer = yield gen.send(answer)
+        gen.close()
+        raise torch.cuda.OutOfMemoryError("injected")
+
+    _patch(mod, name, failing)
+
+
+def inject_refresh_failure(shards, s: int, nth: int, chunk: int) -> None:
+    """Deletes refresh ``chunk`` fat rows a call, and the ``nth`` packed
+    refresh of shard ``s`` raises an injected out-of-memory error after it
+    ran, where the shard is held."""
+    from diskann_tpu_torch.graph import packed as packed_mod
+    from diskann_tpu_torch.parallel import sharded
+
+    _patch(sharded, "_DELETE_CHUNK", chunk)
+    if s not in shards.ids:
+        return
+    target, orig, calls = shards.packed[shards.ids.index(s)], packed_mod.refresh_rows, [0]
+
+    def failing(packed, adjacency, rows, journal=None):
+        orig(packed, adjacency, rows, journal)
+        if packed is target:
+            calls[0] += 1
+            if calls[0] == nth:
+                raise torch.cuda.OutOfMemoryError("injected")
+
+    _patch(packed_mod, "refresh_rows", failing)
+
+
+def undo_injections(shards) -> None:
+    """Put back everything the injections above patched."""
+    while _INJECTED:
+        module, name, orig = _INJECTED.pop()
+        setattr(module, name, orig)
+
+
+def raise_out_of_memory(message: str) -> None:
+    raise torch.cuda.OutOfMemoryError(message)
