@@ -1,0 +1,11 @@
+"""Kernels the card ran in the traced sub-window, per query served there
+(the profiler's kernel events; copies and the benchmark's ranges aside)."""
+
+LAYER = "host orchestration (graph/index.py)"
+UNIT = "launches"
+MOVES = "search_p95_ms"
+
+
+def read(run):
+    t = run.trace
+    return t["kernels"] / run.tracer.queries if t and run.tracer.queries else None
