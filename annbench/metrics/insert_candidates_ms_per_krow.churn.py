@@ -1,0 +1,15 @@
+"""Host wall of the profiler's ``insert.candidates`` ranges (phase 2 of
+`graph/build.insert_batch_steps`: the candidate walk, the intra-batch
+candidates and the prune) per 1,000 rows inserted in the traced
+sub-window: read from the profiler's trace, under its cost
+(`annbench.port_spans`), not from the port's span records."""
+
+from annbench import port_spans
+
+LAYER = "insert batch (graph/build.py, graph/prune.py)"
+UNIT = "ms"
+MOVES = "churn_rows_per_s"
+
+
+def read(run):
+    return port_spans.ms_per_krow(run, "insert.candidates", "insert")

@@ -19,7 +19,7 @@ same paths as their JAX counterparts.
     service.py  VectorSet / VectorService: named sets, VADD / VSIM semantics
     server.py   the RESP2 server and client (python -m diskann_tpu_torch.server)
     tools/      data tools (python -m diskann_tpu_torch.tools)
-    trace.py    host spans; testing.py: the fault-injecting scorer
+    trace.py    spans and the sync counter; testing.py: the fault-injecting scorer
     convert.py  carry an index across (from JAX, or between devices)
     devices.py  the default device (the CUDA card)
 

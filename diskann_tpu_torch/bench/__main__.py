@@ -26,7 +26,7 @@ def main(argv=None):
     r = sub.add_parser("run")
     r.add_argument("jobs")
     r.add_argument("-o", "--out")
-    r.add_argument("--trace", help="export host-side spans as JSON "
+    r.add_argument("--trace", help="export host-side spans and counters as JSON "
                    "(json_spancollector analogue)")
     r.add_argument("--device", help="device of the jobs that name none "
                    "(default: the CUDA card)")

@@ -46,6 +46,7 @@ from diskann_tpu_torch.graph.search import beam_search
 from diskann_tpu_torch.graph.state import GraphArrays, RowJournal
 from diskann_tpu_torch.ops.distance import distance_to_set
 from diskann_tpu_torch.ops.topk import sort_with
+from diskann_tpu_torch.trace import span
 
 METHODS = ("scan", "one_hop", "two_hop_one_hop", "visited_topk")
 REPAIRS = ("prune", "fill")
@@ -329,7 +330,9 @@ def inplace_delete(index, ids, *, method: str = "scan", k_value: int = 16,
     the fill repair.  ``journal`` keeps every row the mark, the repairs
     (`save_rows`) and the drop overwrite; ``refreshed`` collects the
     refreshed fat-row chunks (`rebuild_refreshed`).  The freelist and
-    ``n_deleted`` are written last, after every step that can fail."""
+    ``n_deleted`` are written last, after every step that can fail.  The
+    mark through the drop is traced as a ``delete.repair`` span, the
+    refresh as ``delete.refresh`` (`trace.py`)."""
     if method not in METHODS:
         raise ValueError(f"unknown delete method {method!r}")
     if repair not in REPAIRS:
@@ -341,37 +344,39 @@ def inplace_delete(index, ids, *, method: str = "scan", k_value: int = 16,
         patch_batch = _PATCH_BATCH[repair]
     st = index.state
     cap = st.capacity
-    ids = mark_deleted(st, ids, journal)
-    if ids.numel() == 0:
-        return {"deleted": 0, "affected": 0}
-    # the deleted nodes' out-lists stay intact until drop_deleted_rows
-    out_lists = st.adjacency[ids]
+    with span("delete.repair"):
+        ids = mark_deleted(st, ids, journal)
+        if ids.numel() == 0:
+            return {"deleted": 0, "affected": 0}
+        # the deleted nodes' out-lists stay intact until drop_deleted_rows
+        out_lists = st.adjacency[ids]
 
-    repl_lookup = repl_table = None
-    if method == "scan":
-        affected = torch.nonzero(rows_referencing_deleted(st)).squeeze(1)
-    elif method == "one_hop":
-        affected = _rows_that_reference_deleted(st, _uniq(out_lists, cap))
-    elif method == "two_hop_one_hop":
-        one_hop = _uniq(out_lists, cap)
-        cand = _uniq(torch.cat([one_hop[:, None].int(), st.adjacency[one_hop]], 1), cap)
-        affected = _rows_that_reference_deleted(st, cand)
-    else:
-        cand, repl_lookup, repl_table = _visited_topk(index, ids, k_value, l_value)
-        affected = _rows_that_reference_deleted(st, cand)
+        repl_lookup = repl_table = None
+        if method == "scan":
+            affected = torch.nonzero(rows_referencing_deleted(st)).squeeze(1)
+        elif method == "one_hop":
+            affected = _rows_that_reference_deleted(st, _uniq(out_lists, cap))
+        elif method == "two_hop_one_hop":
+            one_hop = _uniq(out_lists, cap)
+            cand = _uniq(torch.cat([one_hop[:, None].int(), st.adjacency[one_hop]], 1), cap)
+            affected = _rows_that_reference_deleted(st, cand)
+        else:
+            cand, repl_lookup, repl_table = _visited_topk(index, ids, k_value, l_value)
+            affected = _rows_that_reference_deleted(st, cand)
 
-    save_rows(journal, st, affected)
-    kw = dict(max_dead=max_dead, repl_lookup=repl_lookup, repl_table=repl_table)
-    if repair == "fill":
-        kw["repl_cap"] = repl_cap
-    repair_fn = fill_rows if repair == "fill" else patch_rows
-    for off in range(0, affected.shape[0], patch_batch):
-        repair_fn(st, affected[off:off + patch_batch], index.config, **kw)
-    drop_deleted_rows(st, journal)
+        save_rows(journal, st, affected)
+        kw = dict(max_dead=max_dead, repl_lookup=repl_lookup, repl_table=repl_table)
+        if repair == "fill":
+            kw["repl_cap"] = repl_cap
+        repair_fn = fill_rows if repair == "fill" else patch_rows
+        for off in range(0, affected.shape[0], patch_batch):
+            repair_fn(st, affected[off:off + patch_batch], index.config, **kw)
+        drop_deleted_rows(st, journal)
     if index.packed is not None:
         # patched rows changed their neighbourhoods, deleted rows were cleared
-        refresh_chunks(index.packed, st.adjacency, torch.cat([affected, ids]),
-                       patch_batch, refreshed)
+        with span("delete.refresh"):
+            refresh_chunks(index.packed, st.adjacency, torch.cat([affected, ids]),
+                           patch_batch, refreshed)
     freed = ids.tolist()
     index.free_slots.extend(freed)
     index.n_deleted += len(freed)

@@ -63,7 +63,7 @@ from diskann_tpu_torch.quant.minmax import MinMaxQuantizer
 from diskann_tpu_torch.quant.pq import PQ, train_pq
 from diskann_tpu_torch.quant.scalar import ScalarQuantizer, train_scalar
 from diskann_tpu_torch.quant.spherical import SphericalQuantizer, train_spherical
-from diskann_tpu_torch.trace import span
+from diskann_tpu_torch.trace import span, wait
 
 
 # fat rows rebuilt per refresh_rows call in attach_packed: bounds the
@@ -471,7 +471,13 @@ class GraphIndex:
         the minibatches after it back on the freelist in their order, and
         is re-raised; the minibatches before it stay committed, and so
         does a capacity already grown.  A sticky CUDA error leaves the
-        device unusable and nothing can be restored."""
+        device unusable and nothing can be restored.
+
+        Each minibatch is traced as an ``insert.batch`` span (attributes
+        ``offset`` and ``rows``, a root as in the reference), holding
+        ``insert.candidates`` and ``insert.edges`` (`graph/build.py`);
+        each refresh of the build-side router as an ``insert.router`` span
+        (attribute ``committed``)."""
         vectors = torch.as_tensor(vectors, dtype=torch.float32, device=self.device)
         if vectors.dim() == 1:
             vectors = vectors[None]
@@ -517,11 +523,12 @@ class GraphIndex:
                 row_valid = torch.arange(bs, device=self.device) < m
                 committed = base_n + off
                 if use_router and committed >= 4 * r_size and bi >= next_router_refresh:
-                    rng_r = np.random.default_rng(0xD15C ^ committed)
-                    rids = np.sort(rng_r.choice(committed, size=r_size, replace=False))
-                    rids = torch.as_tensor(rids.astype(np.int32), device=self.device)
-                    router = (self.packed.self_codes[rids.long()],
-                              self.packed.self_aux[rids.long()], rids)
+                    with span("insert.router", committed=committed):
+                        rng_r = np.random.default_rng(0xD15C ^ committed)
+                        rids = np.sort(rng_r.choice(committed, size=r_size, replace=False))
+                        rids = torch.as_tensor(rids.astype(np.int32), device=self.device)
+                        router = (self.packed.self_codes[rids.long()],
+                                  self.packed.self_aux[rids.long()], rids)
                     next_router_refresh = bi + 16
                 journal = graph_state.RowJournal()
                 try:
@@ -790,35 +797,42 @@ class GraphIndex:
         full route casts to int64 or int8 there instead, which truncates
         the queries).
         router_starts: per-query router entry points (None = config
-        default)."""
-        if mode == "auto":
-            if (not self._hbm_vectors_dropped
-                    and self.n_live * self.dim <= FLAT_AUTO_CROSSOVER):
-                return self._flat_auto_search(self._queries(queries), k)
-            mode = "packed" if self.packed is not None else "full"
-        if mode not in _MODES:
-            raise ValueError(f"unknown search mode {mode!r}")
-        scorer = self._scorer_for_mode(mode)
-        q = self._queries(queries, query_dtype)
-        l = l_search if l_search is not None else max(k, self.config.l_build)
-        l = max(l, k)
-        w = beam_width if beam_width is not None else self.config.beam_width
-        router_ids = self._router_ids_live(mode)
-        n_start = self._n_start(router_ids, router_starts)
-        router_rows = (self._router_rows(self._packed_router(mode))
-                       if router_ids is not None else None)
-        bs = self.search_batch_size
-        if mode == "full":
-            parts = [self._full_search_batch(q[off:off + bs], k, l, w, max_hops,
-                                             router_ids, router_rows, n_start)
-                     for off in range(0, q.shape[0], bs)]
-        else:
-            parts = [self._quant_search_batch(q[off:off + bs], mode, scorer, k, l, w,
-                                              rerank_l, max_hops, router_ids,
-                                              router_rows, n_start)
-                     for off in range(0, q.shape[0], bs)]
-        fd, fi, cmps, hops = (torch.cat(t).cpu().numpy() for t in zip(*parts))
-        return fd, fi, _stats(cmps, hops, fi)
+        default).
+
+        Traced as a ``search`` span (attributes ``mode`` and ``queries``)
+        holding each query batch's ``search.router``, ``search.walk`` and
+        ``search.rerank`` (`trace.py`)."""
+        with span("search", mode=mode,
+                  queries=1 if np.ndim(queries) == 1 else len(queries)):
+            if mode == "auto":
+                if (not self._hbm_vectors_dropped
+                        and self.n_live * self.dim <= FLAT_AUTO_CROSSOVER):
+                    return self._flat_auto_search(self._queries(queries), k)
+                mode = "packed" if self.packed is not None else "full"
+            if mode not in _MODES:
+                raise ValueError(f"unknown search mode {mode!r}")
+            scorer = self._scorer_for_mode(mode)
+            q = self._queries(queries, query_dtype)
+            l = l_search if l_search is not None else max(k, self.config.l_build)
+            l = max(l, k)
+            w = beam_width if beam_width is not None else self.config.beam_width
+            router_ids = self._router_ids_live(mode)
+            n_start = self._n_start(router_ids, router_starts)
+            router_rows = (self._router_rows(self._packed_router(mode))
+                           if router_ids is not None else None)
+            bs = self.search_batch_size
+            if mode == "full":
+                parts = [self._full_search_batch(q[off:off + bs], k, l, w, max_hops,
+                                                 router_ids, router_rows, n_start)
+                         for off in range(0, q.shape[0], bs)]
+            else:
+                parts = [self._quant_search_batch(q[off:off + bs], mode, scorer, k, l, w,
+                                                  rerank_l, max_hops, router_ids,
+                                                  router_rows, n_start)
+                         for off in range(0, q.shape[0], bs)]
+            with wait("sync"):
+                fd, fi, cmps, hops = (torch.cat(t).cpu().numpy() for t in zip(*parts))
+            return fd, fi, _stats(cmps, hops, fi)
 
     def _flat_auto_search(self, q, k: int):
         """mode="auto" below the crossover: the exact scan over the rows
@@ -839,20 +853,22 @@ class GraphIndex:
             d, i = _flat_search_bf16(
                 q, self._flat_bf16[1], st.vectors, st.sq_norms, st.valid, metric=metric,
                 k=k, kc=kc, chunk=chunk, n=n, qc=rerank_rows(b, kc, self.dim))
-        fd, fi = d.cpu().numpy(), i.cpu().numpy()
+        with wait("sync"):
+            fd, fi = d.cpu().numpy(), i.cpu().numpy()
         return fd, fi, _stats(np.full((b,), self.n_live, np.int32),
                               np.zeros((b,), np.int32), fi)
 
     def _entry_points(self, q, mode, router_ids, router_rows, n_start):
         """Each query's walk entry points: its ``n_start`` nearest router
         ids (`_router_topk_packed_pre` or `_router_topk_full_pre`), or the
-        start point when there is no router."""
-        if router_ids is None:
-            return self._start()
-        if self._packed_router(mode):
-            return _router_topk_packed_pre(*router_rows, router_ids, q, self.metric,
-                                           n_start, compute=self.router_compute)
-        return _router_topk_full_pre(*router_rows, router_ids, q, self.metric, n_start)
+        start point when there is no router.  A ``search.router`` span."""
+        with span("search.router"):
+            if router_ids is None:
+                return self._start()
+            if self._packed_router(mode):
+                return _router_topk_packed_pre(*router_rows, router_ids, q, self.metric,
+                                               n_start, compute=self.router_compute)
+            return _router_topk_full_pre(*router_rows, router_ids, q, self.metric, n_start)
 
     def _quant_search_batch(self, q, mode, scorer, k, l, w, rl, mh, router_ids,
                             router_rows, n_start):
@@ -863,16 +879,18 @@ class GraphIndex:
         metric = cfg.metric
         st = self._entry_points(q, mode, router_ids, router_rows, n_start)
         sdef, sdata, expand_r = scorer
-        res = beam_search_scored(
-            sdef, sdata, self.state.adjacency, st, q,
-            l_search=l, beam_width=w, max_hops=mh or cfg.max_hops,
-            history_capacity=cfg.history_capacity(l),
-            dedup="list" if (mode == "packed" or w > 1) else "ring",
-            expand_r=expand_r, merge_trunc=self.merge_trunc,
-        )
+        with span("search.walk"):
+            res = beam_search_scored(
+                sdef, sdata, self.state.adjacency, st, q,
+                l_search=l, beam_width=w, max_hops=mh or cfg.max_hops,
+                history_capacity=cfg.history_capacity(l),
+                dedup="list" if (mode == "packed" or w > 1) else "ring",
+                expand_r=expand_r, merge_trunc=self.merge_trunc,
+            )
         rl_eff = min(rl, l) if rl else l
-        fd, fi = _rerank(res.ids[:, :rl_eff], q, self.state.vectors,
-                         self.state.sq_norms, self.state.valid, metric, k)
+        with span("search.rerank"):
+            fd, fi = _rerank(res.ids[:, :rl_eff], q, self.state.vectors,
+                             self.state.sq_norms, self.state.valid, metric, k)
         return fd, fi, res.cmps, res.hops
 
     def _full_search_batch(self, q, k, l, w, mh, router_ids, router_rows, n_start):
@@ -880,12 +898,14 @@ class GraphIndex:
         `GraphConfig.history_capacity`)."""
         cfg = self.config
         st = self._entry_points(q, "full", router_ids, router_rows, n_start)
-        res = beam_search(
-            self.state.vectors, self.state.sq_norms, self.state.adjacency, st, q,
-            metric=cfg.metric, l_search=l, beam_width=w,
-            max_hops=mh or cfg.max_hops, history_capacity=cfg.history_capacity(l),
-        )
-        fd, fi = _filter_deleted(res.dists, res.ids, self.state.valid, k)
+        with span("search.walk"):
+            res = beam_search(
+                self.state.vectors, self.state.sq_norms, self.state.adjacency, st, q,
+                metric=cfg.metric, l_search=l, beam_width=w,
+                max_hops=mh or cfg.max_hops, history_capacity=cfg.history_capacity(l),
+            )
+        with span("search.rerank"):
+            fd, fi = _filter_deleted(res.dists, res.ids, self.state.valid, k)
         return fd, fi, res.cmps, res.hops
 
     # ---------------------------------------------------------------- filters
@@ -1135,13 +1155,19 @@ class GraphIndex:
         "fill" drops the dead entries and tops the row up with the nearest
         replacements, with no occlusion scan.  The counts of the call are
         in ``last_delete_stats``.  The call commits whole or not at all
-        (`_commit_whole`), so a retry after a failure deletes the same ids."""
-        self.last_delete_stats = self._commit_whole(
-            lambda journal, refreshed: delete_mod.inplace_delete(
-                self, ids, method=method, k_value=k_value, l_value=l_value,
-                repair=repair, max_dead=max_dead, repl_cap=repl_cap,
-                journal=journal, refreshed=refreshed))
-        self._invalidate_start()
+        (`_commit_whole`), so a retry after a failure deletes the same ids.
+        Traced as a ``delete`` span (attributes ``method``, ``repair`` and
+        ``rows``, the rows deleted) holding ``delete.repair`` and
+        ``delete.refresh``."""
+        with span("delete", method=method, repair=repair) as rec:
+            self.last_delete_stats = self._commit_whole(
+                lambda journal, refreshed: delete_mod.inplace_delete(
+                    self, ids, method=method, k_value=k_value, l_value=l_value,
+                    repair=repair, max_dead=max_dead, repl_cap=repl_cap,
+                    journal=journal, refreshed=refreshed))
+            self._invalidate_start()
+            if rec is not None:
+                rec["attributes"]["rows"] = self.last_delete_stats["deleted"]
 
     def consolidate(self) -> None:
         """Cleanup sweep: prune-repair every live row that still refers to

@@ -14,10 +14,13 @@ what every public function does (`beam_search`, `robust_prune`,
 `insert_batch`, ...): one device, the same ops in the same order.
 `parallel/sharded._fan_out` drives one generator per shard in lockstep:
 it advances every shard to its next flag, so each card's step is queued
-before the host waits on any flag, then reads the flags together.
+before the host waits on any flag, then reads the flags together.  Each
+read is a ``sync`` wait of `trace.py`.
 """
 
 from __future__ import annotations
+
+from diskann_tpu_torch.trace import wait
 
 
 def run(steps):
@@ -26,6 +29,8 @@ def run(steps):
     try:
         flag = next(steps)
         while True:
-            flag = steps.send(flag.item())
+            with wait("sync"):
+                answer = flag.item()
+            flag = steps.send(answer)
     except StopIteration as stop:
         return stop.value

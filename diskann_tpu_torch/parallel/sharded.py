@@ -80,6 +80,7 @@ import traceback
 import numpy as np
 import torch
 
+from diskann_tpu_torch import trace
 from diskann_tpu_torch.devices import default_device
 from diskann_tpu_torch.graph import delete as delete_mod
 from diskann_tpu_torch.graph import packed as packed_mod
@@ -170,12 +171,14 @@ def _fan_out(devices: list, fn) -> list:
     Each round advances every unfinished generator to its next flag, in
     shard order, then reads the round's flags (`_read_flags`) and sends
     each its answer.  Results come back in shard order; the first
-    exception propagates once every generator has been closed."""
+    exception propagates once every generator has been closed.  Each
+    shard's trace spans nest on a stack of its own (`trace.fork`)."""
     out = [None] * len(devices)
     live = {}
+    stacks = trace.fork(len(devices))
     try:
         for s, dev in enumerate(devices):
-            with _on(dev):
+            with _on(dev), trace.resume(stacks, s):
                 r = fn(s)
             if inspect.isgenerator(r):
                 live[s] = r
@@ -185,7 +188,7 @@ def _fan_out(devices: list, fn) -> list:
         while live:
             flags = {}
             for s in list(live):
-                with _on(devices[s]):
+                with _on(devices[s]), trace.resume(stacks, s):
                     try:
                         flags[s] = live[s].send(answers[s])
                     except StopIteration as stop:
@@ -202,16 +205,20 @@ def _read_flags(flags: dict) -> dict:
     """The host value of each shard's yielded flag: every card's flags are
     copied to pinned host memory behind one event on that card, and each
     card's event is waited on only once every card has its copies queued,
-    so no card waits for another's turn."""
-    host = {s: f.to("cpu", non_blocking=True) for s, f in flags.items()}
-    events = []
-    for dev in dict.fromkeys(f.device for f in flags.values() if f.device.type == "cuda"):
-        with torch.cuda.device(dev):
-            events.append(torch.cuda.Event())
-            events[-1].record()
-    for ev in events:
-        ev.synchronize()
-    return {s: h.item() for s, h in host.items()}
+    so no card waits for another's turn.  One ``sync`` wait of `trace.py`
+    a round that has flags."""
+    if not flags:
+        return {}
+    with trace.wait("sync"):
+        host = {s: f.to("cpu", non_blocking=True) for s, f in flags.items()}
+        events = []
+        for dev in dict.fromkeys(f.device for f in flags.values() if f.device.type == "cuda"):
+            with torch.cuda.device(dev):
+                events.append(torch.cuda.Event())
+                events[-1].record()
+        for ev in events:
+            ev.synchronize()
+        return {s: h.item() for s, h in host.items()}
 
 
 def _per_device(devices: list, t: torch.Tensor) -> dict:
@@ -358,10 +365,11 @@ class _Shards:
         slots = torch.cat([free[:take], torch.arange(n, n + m - take, device=dev)])
         slots = slots.to(torch.int32)
         packed = self.packed[i] if self.packed is not None else None
-        yield from insert_batch_steps(st, slots, vecs,
-                                      torch.ones(m, dtype=torch.bool, device=dev),
-                                      self.starts[i], self.config, packed,
-                                      journal=journal)
+        with trace.span("insert.batch", shard=i, rows=m):
+            yield from insert_batch_steps(st, slots, vecs,
+                                          torch.ones(m, dtype=torch.bool, device=dev),
+                                          self.starts[i], self.config, packed,
+                                          journal=journal)
         journal.save(self.ext[i], slots.long())
         self.ext[i][slots.long()] = rext
         n = n + m - take

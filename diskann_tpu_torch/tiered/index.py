@@ -28,7 +28,6 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from diskann_tpu_torch.filters import compile_accept, parse_predicate
 from diskann_tpu_torch.graph.config import GraphConfig
@@ -311,9 +310,10 @@ class TieredIndex:
         """Run ``traverse`` (device queries -> staged ids [b, budget],
         cmps, hops) over the query batches, with batch i's host gather in
         flight while batch i+1 walks; then wait, upload, rerank.  Each walk
-        is a trace span ``span_name`` and each gather wait a
-        ``tiered.stage_wait`` span (`trace.py`), beside the profiler
-        ranges."""
+        is a trace span ``span_name``, each gather wait a
+        ``tiered.stage_wait`` span, each upload ``tiered.upload`` and each
+        rerank ``tiered.rerank`` (`trace.py`; profiler ranges too while a
+        profiler runs)."""
         g = self.graph
         dev = g.device
         b = queries.shape[0]
@@ -326,8 +326,7 @@ class TieredIndex:
             nxt = None
             if off is not None:
                 qf = torch.from_numpy(queries[off:off + batch_size]).to(dev)
-                with span(span_name, offset=off, rows=qf.shape[0]), \
-                        record_function("tiered.traverse"):
+                with span(span_name, offset=off, rows=qf.shape[0]):
                     ids, pc, ph = traverse(_round_queries(qf, query_dtype))
                     # one copy to the host, which waits for the walk
                     packed = torch.cat([ids, pc[:, None].int(), ph[:, None].int()], 1)
@@ -340,12 +339,11 @@ class TieredIndex:
                 nxt = (off, qf, ids, handle, arr[:, -2], arr[:, -1])
             if pending is not None:
                 poff, qf, ids, handle, pc, ph = pending
-                with span("tiered.stage_wait", offset=poff), \
-                        record_function("tiered.stage_wait"):
+                with span("tiered.stage_wait", offset=poff):
                     rows = self.store.fetch_wait(handle)
-                with record_function("tiered.upload"):
+                with span("tiered.upload", offset=poff):
                     rows = self._upload(rows, row_wire)
-                with record_function("tiered.rerank"):
+                with span("tiered.rerank", offset=poff):
                     d, i = _tiered_rerank(qf, rows, ids, g.state.valid, g.config.metric, k)
                     m, kk = i.shape
                     out_d[poff:poff + m, :kk] = d.cpu().numpy()

@@ -85,6 +85,9 @@ EXCLUDED = {
     ("graph/search.py", "SearchState", None):
         "the jitted hop loop's carry; the port's eager loop keeps it in locals "
         "(ResumeState, what a resume needs, is ported)",
+    ("trace.py", "add_event", None):
+        "zero-length events no reader read; the port's counters (`count`, `wait`) "
+        "record what the host does between spans",
 }
 
 
