@@ -13,7 +13,12 @@ Phases, each printing one line:
 3. K1 `fatrow_expand` against its plain version, bitwise, at (r_pack, dp) =
    (16, 64), (32, 32), (88, 64), (84, 128) and at the other packed widths
    (16, 4), (16, 8), (84, 256), (40, 512), with repeated and out-of-range
-   beam ids, and at the main path's BW = 8192 x 4 slots;
+   beam ids, and at the main path's BW = 8192 x 4 slots; K3 `hop_merge`
+   against its plain version, bitwise (lists, cmps, hops, next beam,
+   flags), at the packed list walk's shapes: B=8192, W=4, r_pack=84,
+   dp=128, L=24 (the search) and B=2048, r_pack=88, dp=64, L=90 (the
+   stream's checkpoints), with repeated and -1 neighbours, invalid beam
+   slots, converged rows, tied distances and +inf list tails;
 4. K2 `block_patch` against its plain version, bitwise, on int32 and int8
    tables with many patches aimed at the dump block, then a small index
    (20k points, with the benchmark's labels) searched on the card and,
@@ -46,7 +51,9 @@ Phases, each printing one line:
    longer than their enqueue, so the events bracket back-to-back device
    work; the host's time per wrapper call is printed on its own line, and
    the main path's K1 launches at each width times that width's gap to its
-   bound;
+   bound; K3 at both of phase 3's shapes, beside its byte bound (K1's id,
+   aux and dot words it reads, the lists read and written) and its plain
+   version;
 9. stream: the JAX package's 1M streaming setting (`BENCH_STREAM1M_r05`):
    a packed index over 1M of 1.3M clustered points (capacity 1,040,000),
    then 6 cycles of delete 50,000 (scan, fill,
@@ -255,6 +262,11 @@ delete of 50,000 ids and a search after it; fails below recall@10 0.95
 on the packed walk, on a deleted id, or on a card whose peak reaches its
 memory.  Each prints a summary line and no result line.
 
+K3 launches once per K1 launch of a packed list walk (the main path's
+searches, the stream's checkpoints) and never in builds, inserts, deletes
+or filtered walks: the main path fails unless its K3 launches equal its
+dp=128 K1 launches, and the filtered path unless it launches none.
+
 Then a JSON line with the kernels, the `nvidia-smi` name/power-limit line,
 and last the result line `{"ok": true, "device": {...}}`.  Any failed phase
 raises, and the script exits non-zero without the result line; so does a
@@ -276,6 +288,9 @@ K1_REPLACES = "diskann_tpu/ops/kernels/fatrow_expand.py:146"
 K2_REPLACES = "diskann_tpu/ops/kernels/block_patch.py:68"
 K1_SOURCE = "diskann_tpu_torch/ops/kernels/csrc/fatrow_expand.cu"
 K2_SOURCE = "diskann_tpu_torch/ops/kernels/csrc/block_patch.cu"
+# K3 replaces no Pallas kernel: the JAX package leaves the hop tail to XLA
+K3_REPLACES = None
+K3_SOURCE = "diskann_tpu_torch/ops/kernels/csrc/hop_merge.cu"
 D = 128
 NQ = 8192
 K = 10
@@ -333,6 +348,9 @@ K1_WIDTHS = ((16, 4), (16, 8), (16, 16), (84, 256), (40, 512), K1_MERGED)
 K1_WIDTH_REPS = 100
 # rp=16 is also timed at this many slots: a bound of >= 0.1 ms
 K1_WIDE_SLOTS = 1 << 18
+# K3 at the packed list walk's shapes (rows, W, r_pack, dp, L): the main
+# path's search and the stream's checkpoints
+K3_SHAPES = ((NQ, 4, 84, 128, 24), (STREAM_NQ, 4, 88, 64, 90))
 # mode="auto": the flat route against the graph walk at a batch of
 # AUTO_BATCH queries (best of 3) and AUTO_SINGLES single-query calls;
 # the flat route's recall@10 bar; the bracket point below the 768-d shape
@@ -529,6 +547,113 @@ def check_block_patch(torch, device) -> int:
             raise RuntimeError(f"block_patch disagrees with its plain version ({dt})")
         worst = max(worst, err)
     return worst
+
+
+def hop_inputs(torch, device, b: int, w: int, rp: int, dp: int, l: int, seed: int):
+    """One hop's inputs to K3 for ``b`` rows, made on ``device``: K1's
+    outputs at (rp, dp) over 1M node ids (a tenth -1, beam slot 1 of each
+    row repeating half of slot 0's ids, a few list ids among them), each
+    query's scale and squared norm, sorted lists (+inf tails in a quarter
+    of the rows, ties in another quarter), a beam with invalid slots, and a
+    sixteenth of the rows converged.  Returns (args, hop, HopState)."""
+    from diskann_tpu_torch.ops.kernels import hop_merge as k3
+    from diskann_tpu_torch.ops.kernels.fatrow_expand import _geometry
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    idw, _, codr, cpr = _geometry(rp, dp)
+    nodes = 1_000_000
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=device, dtype=torch.int32)
+
+    ids = ints(0, nodes, (b * w, idw * 128))
+    ids[torch.rand(ids.shape, generator=g, device=device) < 0.1] = -1
+    ids.view(b, w, -1)[:, 1, : rp // 2] = ids.view(b, w, -1)[:, 0, : rp // 2]
+    aux = torch.rand(ids.shape, generator=g, device=device) * 40
+    dots = ints(-127 * 127 * 4, 127 * 127 * 4, (b * w, codr * cpr))
+    qscale = torch.rand(b, generator=g, device=device) * 1e-2 + 1e-4
+    qsq = torch.rand(b, generator=g, device=device) * 40 + 20
+    ld = torch.sort(torch.rand((b, l), generator=g, device=device) * 80, dim=1).values
+    ld[b // 4: b // 2] = torch.floor(ld[b // 4: b // 2] / 8) * 8      # ties
+    li = torch.argsort(torch.rand((b, nodes // 64), generator=g, device=device), dim=1)[:, :l]
+    li = (li * 64).to(torch.int32)
+    li[:, :2] = ids.view(b, w, -1)[:, 0, :2]                           # in the hop too
+    le = ints(0, 2, (b, l))
+    tail = torch.arange(l, device=device)[None, :] >= ints(1, l + 1, (b, 1))
+    tail[b // 4:] = False
+    ld[tail], li[tail], le[tail] = float("inf"), -1, 1
+    beam = ints(0, nodes, (b, w))
+    beam[torch.rand(beam.shape, generator=g, device=device) < 0.1] = -1
+    beam[:: 16] = -1
+    le[:: 16] = 1
+    hop = seed % 2
+    st = k3.HopState(ld, li, le, ints(0, 100, (b,)), ints(0, 20, (b,)), beam,
+                     torch.tensor([hop == 1, hop == 0], device=device))
+    return (ids, aux.view(torch.int32), dots, qscale, qsq), hop, st
+
+
+def check_hop_merge(torch, device) -> int:
+    """K3 vs plain, bitwise, at K3_SHAPES on both distance forms.  Returns
+    the count of differing words (0) or raises."""
+    from diskann_tpu_torch.ops.kernels import hop_merge as k3
+
+    for b, w, rp, dp, l in K3_SHAPES:
+        for ip in (False, True):
+            args, hop, st = hop_inputs(torch, device, b, w, rp, dp, l, rp + dp + ip)
+            got, want = st.clone(), st.clone()
+            k3.hop_merge(*args, got, hop, rp=rp, inner_product=ip)
+            k3.hop_merge_plain(*args, want, hop, rp=rp, inner_product=ip)
+            torch.cuda.synchronize(device)
+            diff = 0
+            for f in ("best_d", "best_i", "best_e", "cmps", "hops", "beam", "flags"):
+                a, z = getattr(got, f), getattr(want, f)
+                if a.dtype == torch.float32:
+                    a, z = a.view(torch.int32), z.view(torch.int32)
+                diff += int((a != z).sum()) if a.shape == z.shape else a.numel()
+            log(f"[k3] {device} hop_merge B={b} W={w} rp={rp} dp={dp} L={l} "
+                f"{'inner product' if ip else 'L2'}: fresh {int((want.cmps - st.cmps).sum())}, "
+                f"tolerance=bitwise bitwise_equal={diff == 0} differing_words={diff}")
+            if diff:
+                raise RuntimeError(f"hop_merge disagrees with its plain version at B={b} "
+                                   f"rp={rp} dp={dp} L={l}")
+    return 0
+
+
+def k3_row(torch, b: int, w: int, rp: int, dp: int, l: int, device) -> dict:
+    """Time K3 and its plain version (`time_ms`) on one hop's inputs, each
+    call on a fresh copy of the hop's state, made before the timed window
+    (a call in place on one state would merge the same candidates again:
+    none fresh after the first call, no beam left after L / W), beside
+    K3's byte bound: K1's ids, aux and dots for the r_pack slots it reads,
+    the lists read and written, the beam read and the next one written,
+    qscale, qsq, cmps and hops."""
+    from diskann_tpu_torch.ops.kernels import hop_merge as k3
+
+    args, hop, st = hop_inputs(torch, device, b, w, rp, dp, l, 11)
+    reps, tries = 20, 3
+    # time_ms makes 3 warm-up calls, `reps` for the host's time, then up
+    # to `reps` a window
+    copies = iter([st.clone() for _ in range(3 + reps + reps * tries)])
+    t = time_ms(torch, lambda: k3.hop_merge(*args, next(copies), hop, rp=rp,
+                                            inner_product=False), reps, tries)
+    copies = iter([st.clone() for _ in range(3 + 2 * reps)])
+    p = time_ms(torch, lambda: k3.hop_merge_plain(*args, next(copies), hop, rp=rp,
+                                                  inner_product=False), reps, 1)
+    del copies
+    moved = b * (w * rp * 12 + 2 * l * 12 + 2 * w * 4 + 2 * 4 + 2 * 2 * 4)
+    bound = moved / HBM_BYTES_PER_MS
+    threads, _, smem = k3.geometry(w * rp, l, w)
+    one = st.clone()
+    k3.hop_merge(*args, one, hop, rp=rp, inner_product=False)
+    fresh = int((one.cmps - st.cmps).sum()) / b
+    log(f"[time] hop_merge B={b} W={w} rp={rp} dp={dp} L={l}, each call on a fresh "
+        f"copy of the hop's state ({fresh:.1f} fresh candidates a row): kernel {t['ms']:.4f} ms "
+        f"({bound / t['ms']:.1%} of its bound), plain {p['ms']:.3f} ms, bound "
+        f"{bound:.4f} ms ({moved / 1e6:.1f} MB, by bytes); {threads} threads and "
+        f"{smem} B of shared memory a row; {timing_note(t, reps)}")
+    return {"ms": t["ms"], "plain_ms": p["ms"], "host_ms": t["host_ms"],
+            "plain_host_ms": p["host_ms"], "bound_ms": bound, "bound_by": "bytes",
+            "bound_bytes": moved, "share": bound / t["ms"], "fresh_per_row": fresh}
 
 
 def check_small_input(torch, device) -> float:
@@ -1012,12 +1137,15 @@ def run_stream(x, q, device, k1, k2, *, n: int = STREAM_N,
     ex.tag_to_id = dict(zip(range(n), range(n)))
     ex.tag_to_row = dict(zip(range(n), range(n)))
 
+    from diskann_tpu_torch.ops.kernels import hop_merge as k3
+
     cycles_out = []
     k1.launches = 0
     k2.launches = 0
+    k3.launches = 0
     for c in range(cycles):
         lo = c * step
-        l1, l2 = k1.launches, k2.launches
+        l1, l2, l3 = k1.launches, k2.launches, k3.launches
         dele = ex.run([{"operation": "delete", "start": lo, "end": lo + step}])[-1]
         affected = idx.last_delete_stats["affected"]
         freed = list(idx.free_slots)
@@ -1032,15 +1160,17 @@ def run_stream(x, q, device, k1, k2, *, n: int = STREAM_N,
             raise RuntimeError(f"[stream] cycle {c}: {len(idx.free_slots)} slots not reused")
         row = {"cycle": c, "recall": srch["recall"], "delete_s": dele["wall_s"],
                "insert_s": ins["wall_s"], "search_s": srch["wall_s"],
-               "affected": affected, "k1": k1.launches - l1, "k2": k2.launches - l2}
+               "affected": affected, "k1": k1.launches - l1, "k2": k2.launches - l2,
+               "k3": k3.launches - l3}
         cycles_out.append(row)
         log(f"[stream] cycle {c}: recall@{K}={row['recall']:.4f} delete {step} "
             f"{row['delete_s']:.2f}s (affected rows {affected}) insert {step} "
             f"{row['insert_s']:.2f}s checkpoint {row['search_s']:.2f}s "
-            f"launches K1={row['k1']} K2={row['k2']}")
+            f"launches K1={row['k1']} K2={row['k2']} K3={row['k3']}")
         if row["recall"] < min_recall:
             raise RuntimeError(f"[stream] cycle {c}: recall {row['recall']:.4f} < {min_recall}")
-    launches = {"fatrow_expand": k1.launches, "block_patch": k2.launches}
+    launches = {"fatrow_expand": k1.launches, "block_patch": k2.launches,
+                "hop_merge": k3.launches}
 
     traj = [r["recall"] for r in cycles_out]
     out = {"n": n, "cycles": cycles, "build_s": build_s, "cycles_out": cycles_out,
@@ -1154,12 +1284,16 @@ def run_runbook(x, q, device, *, n: int = RUNBOOK_N,
 
 
 def take_launches(k1, k2, phase: str | None = None) -> dict:
-    """Both kernels' launch counts since the last call (logged under
+    """The kernels' launch counts since the last call (logged under
     ``phase`` when given); the counts restart at 0."""
-    out = {"fatrow_expand": k1.launches, "block_patch": k2.launches}
-    k1.launches = k2.launches = 0
+    from diskann_tpu_torch.ops.kernels import hop_merge as k3
+
+    out = {"fatrow_expand": k1.launches, "block_patch": k2.launches,
+           "hop_merge": k3.launches}
+    k1.launches = k2.launches = k3.launches = 0
     k1.launches_by_device.clear()
     k2.launches_by_device.clear()
+    k3.launches_by_device.clear()
     if phase:
         log(f"[{phase}] kernel launches: {out}")
     return out
@@ -1835,9 +1969,10 @@ def run_merged(device, k1, k2) -> dict:
         merged_invariants(ti, "[merged]")
         log(f"[merged] build_merged {MERGED_SHARDS} shards overlap 2 codes=sq: {dt:.1f}s "
             f"({MERGED_N / dt:.0f} points/s); invariants held")
-        if min(out["build_launches"].values()) < 1:
-            raise RuntimeError(f"[merged] a kernel never launched in the build: "
-                               f"{out['build_launches']}")
+        bl = out["build_launches"]
+        if min(bl["fatrow_expand"], bl["block_patch"]) < 1 or bl["hop_merge"]:
+            raise RuntimeError(f"[merged] K1 or K2 never launched in the build, or K3 "
+                               f"did: {bl}")
         ti.store = HostVectorStore.from_fbin(path, cache_rows=1 << 20)
         if not ti.store.is_native:
             raise RuntimeError("[merged] the store is not the native reader")
@@ -2551,7 +2686,8 @@ def k1_row(torch, k1mod, rows, beam, qiw, rp: int, dp: int, nodes: int, reps: in
 
 def time_kernels(torch, device, n: int) -> dict:
     """Kernel vs plain at the main path's shapes, on random tables of the
-    main path's size, each timed on the device alone (`time_ms`): K1 at
+    main path's size, each timed on the device alone (`time_ms`): K3 at
+    K3_SHAPES (`k3_row`); K1 at
     BW = 8192 x 4 slots on the dp=64 build table and the dp=128 search
     table (past 2^31 words at 1M rows); K2 at one build commit's refresh
     (8192 rows x 2 blocks of the dp=64 table) beside `index_copy_`.  Then
@@ -2636,6 +2772,8 @@ def time_kernels(torch, device, n: int) -> dict:
             del beam, qiw
         del rows
         torch.cuda.empty_cache()
+    for b, w, rp, dp, l in K3_SHAPES:
+        res[f"k3_rp{rp}_dp{dp}"] = k3_row(torch, b, w, rp, dp, l, device)
     host = {k: round(v["host_ms"], 4) for k, v in res.items()
             if isinstance(v, dict) and "host_ms" in v}
     log(f"[time] host ms per wrapper call (the enqueue alone, no sync): {json.dumps(host)}")
@@ -2745,8 +2883,10 @@ def run_dtypes(device, n: int, gt, main_sweep, k1, k2) -> dict:
         log(f"[dtypes] {name} packed build: {dt:.1f}s ({n / dt:.0f} points/s); vectors "
             f"{vec.dtype} {row['vector_bytes'] / 1e6:.1f} MB on the device (float32: "
             f"{row['float32_bytes'] / 1e6:.1f} MB)")
-        if vec.dtype != dtype or min(launches.values()) == 0:
-            raise RuntimeError(f"[dtypes] {name}: stored {vec.dtype}, launches {launches}")
+        if (vec.dtype != dtype or min(launches["fatrow_expand"], launches["block_patch"]) == 0
+                or launches["hop_merge"]):
+            raise RuntimeError(f"[dtypes] {name}: stored {vec.dtype}, launches {launches} "
+                               f"(a build runs K1 and K2, not K3)")
         idx.attach_packed(dp=128)
         idx.router_compute = "bf16"
         row["sweep"] = sweep_packed(idx, qq, truth, ls, f"[dtypes] {name}")
@@ -4582,6 +4722,7 @@ def main(argv=None) -> int:
                          "this script needs an NVIDIA card")
     from diskann_tpu_torch.ops.kernels import block_patch as k2
     from diskann_tpu_torch.ops.kernels import fatrow_expand as k1
+    from diskann_tpu_torch.ops.kernels import hop_merge as k3
     from diskann_tpu_torch.ops.kernels import native
 
     device = torch.device("cuda", 0)
@@ -4608,16 +4749,19 @@ def main(argv=None) -> int:
 
     k1_err, k1_dps = check_fatrow_expand(torch, device)
     k2_err = check_block_patch(torch, device)
+    k3_err = check_hop_merge(torch, device)
     cards = torch.cuda.device_count()
     log(f"[device] {cards} card(s): "
         f"{[torch.cuda.get_device_name(c) for c in range(cards)]}")
     for c in range(1, cards):
         check_fatrow_expand(torch, torch.device("cuda", c))
         check_block_patch(torch, torch.device("cuda", c))
+        check_hop_merge(torch, torch.device("cuda", c))
         torch.cuda.empty_cache()
     if args.only == "kernels":
         times = time_kernels(torch, device, args.n)
-        log("[summary] " + json.dumps({k: v for k, v in times.items() if k != "k1_dps"}))
+        log("[summary] " + json.dumps({k: v for k, v in times.items() if k != "k1_dps"}
+                                      | {"k3_err": k3_err}))
         return 0
     if args.only == "sharded":
         return only_sharded(torch, device, args.n, k1, k2)
@@ -4640,9 +4784,11 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats(device)
     k1.launches = 0
     k2.launches = 0
+    k3.launches = 0
     k1.launches_by_dp.clear()
     main_out, idx, qd, gt = run_main_path(args.n, device)
-    launches = {"fatrow_expand": k1.launches, "block_patch": k2.launches}
+    launches = {"fatrow_expand": k1.launches, "block_patch": k2.launches,
+                "hop_merge": k3.launches}
     k1_main_by_dp = dict(k1.launches_by_dp)
     peak = torch.cuda.max_memory_allocated(device)
     log(f"[main] kernel launches on the main path: {launches}, K1 by dp "
@@ -4650,6 +4796,10 @@ def main(argv=None) -> int:
         f"max_memory_allocated {peak / 2**30:.2f} GiB")
     if min(launches.values()) == 0:
         raise RuntimeError(f"a kernel of the main path never launched: {launches}")
+    # the build walks keep the generic body; every search hop is K1 + K3
+    if launches["hop_merge"] != k1_main_by_dp.get(128, 0):
+        raise RuntimeError(f"K3 launched {launches['hop_merge']} times on the main path, "
+                           f"its packed searches' K1 {k1_main_by_dp.get(128, 0)}")
     lap("main")
 
     # [rollback]: inserts and sharded calls that fail commit nothing
@@ -4673,11 +4823,16 @@ def main(argv=None) -> int:
         # the filtered path runs K1 only: K2 writes the table it reads
         k1.launches = 0
         k2.launches = 0
+        k3.launches = 0
         filt_rows, filt_gt = run_filtered(idx, qd, k1)
-        filt_launches = {"fatrow_expand": k1.launches, "block_patch": k2.launches}
+        filt_launches = {"fatrow_expand": k1.launches, "block_patch": k2.launches,
+                         "hop_merge": k3.launches}
         log(f"[filtered] kernel launches on the filtered path: {filt_launches}")
         if filt_launches["fatrow_expand"] == 0:
             raise RuntimeError("K1 never launched on the filtered path")
+        if filt_launches["hop_merge"]:
+            raise RuntimeError("K3 launched on the filtered path (its walk keeps the "
+                               "generic body)")
         profiled = profile_filtered_walk(idx, qd)
         full = run_full_route(idx, qd, gt, filt_gt["cat0"])
         lap("filtered_and_full")
@@ -4822,6 +4977,17 @@ def main(argv=None) -> int:
              "bound_ms": k2t["bound_ms"], "bound_by": k2t["bound_by"],
              "library_ms": k2t["library_ms"], "host_ms": k2t["host_ms"],
              "shape": f"int32 patches={k2t['patches']}"},
+            {"name": "hop_merge", "route": "cuda", "source": K3_SOURCE,
+             "replaces": K3_REPLACES, "launches": launches["hop_merge"],
+             "filtered_launches": filt_launches["hop_merge"],
+             "stream_launches": stream_launches["hop_merge"],
+             **{f"{p}_launches": phase_launches[p].get("hop_merge") for p in phase_launches},
+             "max_abs_err": k3_err,
+             **{f"{key}_rp{rp}_dp{dp}": times[f"k3_rp{rp}_dp{dp}"][key]
+                for _, _, rp, dp, _ in K3_SHAPES
+                for key in ("ms", "plain_ms", "bound_ms", "host_ms")},
+             "library_ms": None,
+             "shape": "B=8192 W=4 rp=84 dp=128 L=24; B=2048 W=4 rp=88 dp=64 L=90"},
         ]
         summary = {k: main_out[k] for k in ("n", "build_s", "build_points_per_s", "attach_s",
                                             "build_peak_bytes", "journal_bytes")}

@@ -7,7 +7,8 @@ A scorer is a `(ScorerDef, data)` pair: `ScorerDef` holds the callables,
 - full precision: gathers raw vectors, one float32 product per candidate
   set;
 - packed fat rows: scores start points from the int8 self-codes and
-  expands beam nodes through the `fatrow_expand` kernel;
+  expands beam nodes through the `fatrow_expand` kernel; in the plain list
+  walk a whole hop is `fatrow_expand` then `hop_merge` (``list_hop``);
 - PQ: per-query ADC tables [B, m*k], one gather of table entries per
   candidate code and a sum over chunks;
 - SQ and MinMax: int8 rows with the dequantization folded into the score;
@@ -32,8 +33,8 @@ from typing import Any, Callable
 
 import torch
 
-from diskann_tpu_torch.graph.packed import words_to_f32
 from diskann_tpu_torch.ops.distance import Metric, distance_to_set, squared_norms
+from diskann_tpu_torch.ops.kernels import hop_merge as k3
 from diskann_tpu_torch.ops.kernels.fatrow_expand import fatrow_expand
 from diskann_tpu_torch.ops.topk import smallest_k
 from diskann_tpu_torch.quant.bits import unpack_bits
@@ -50,12 +51,17 @@ class ScorerDef:
     score(data, q_ctx, ids, valid) -> d     [B, C] f32 distances (inf if invalid)
     expand(data, q_ctx, beam_ids, beam_valid) -> (cand_ids [B, C], d [B, C])
         scores all neighbours of the beam at once from a packed per-node
-        layout."""
+        layout.
+    list_hop(data, q_ctx, w, l) -> step(st, hop), or None where it cannot
+        take that beam width and list width: a whole hop of the list walk
+        (`graph/search.py`) through this expand, its merge included, in
+        place on an `ops/kernels/hop_merge.HopState`."""
 
     name: str
     prep: Callable[[Any, torch.Tensor], Any]
     score: Callable[[Any, Any, torch.Tensor, torch.Tensor], torch.Tensor]
     expand: Callable | None = None
+    list_hop: Callable | None = None
 
 
 def full_precision_scorer(vectors, sq_norms, metric: Metric):
@@ -117,16 +123,7 @@ def packed_scorer(packed, metric: Metric):
     arbitrary ids (start points), `rows` serve beam expansion."""
     rp, dp = packed.r_pack, packed.dp
     nwr = packed.nwr
-
-    def finish(cand, aux, dots, qsq, beam_valid, b, w):
-        cand = torch.where(
-            beam_valid.view(b, w, 1), cand.view(b, w, rp), -1
-        ).view(b, w * rp)
-        if metric == Metric.InnerProduct:
-            d = -dots
-        else:
-            d = (qsq[:, None] + aux - 2.0 * dots).clamp_min(0.0)
-        return cand, torch.where(cand >= 0, d, float("inf"))
+    ip = metric == Metric.InnerProduct
 
     def score(data, q_ctx, ids, valid):
         rows, proj, pscale, pbias2, self_codes, self_aux = data
@@ -147,13 +144,29 @@ def packed_scorer(packed, metric: Metric):
         beam_flat = beam_ids.clamp(0, n - 1).reshape(b * w).to(torch.int32)
         qiw = qi.repeat_interleave(w, dim=0)
         ids_w, aux_w, dots_i = fatrow_expand(rows, beam_flat, qiw, rp=rp, dp=dp)
-        cand = ids_w[:, :rp].reshape(b, w * rp)
-        aux = words_to_f32(aux_w[:, :rp]).reshape(b, w * rp)
-        dots = dots_i[:, :rp].reshape(b, w * rp).float() * qscale[:, None]
-        return finish(cand, aux, dots, qsq, beam_valid, b, w)
+        return k3.candidates(ids_w, aux_w, dots_i, qscale, qsq, beam_valid, rp=rp,
+                             inner_product=ip)
+
+    def list_hop(data, q_ctx, w, l):
+        # K1 on the hop's beam, then K3: the candidates' distances, the
+        # dedup, the merge and the next beam in one launch.  A beam whose
+        # W * r_pack candidates and list one block cannot hold (W >= 51 at
+        # r_pack 84) keeps the generic body, on every device alike
+        if not k3.fits(w * rp, l, w):
+            return None
+        rows = data[0]
+        qi, qscale, qsq = q_ctx
+        qiw = qi.repeat_interleave(w, dim=0)
+
+        def step(st, hop):
+            ids_w, aux_w, dots_i = fatrow_expand(rows, st.beam.view(-1), qiw, rp=rp, dp=dp)
+            k3.hop_merge(ids_w, aux_w, dots_i, qscale, qsq, st, hop, rp=rp,
+                         inner_product=ip)
+
+        return step
 
     sdef = ScorerDef(f"packed:{metric.value}:{rp}x{dp}", _packed_prep(metric),
-                     score, expand=expand)
+                     score, expand=expand, list_hop=list_hop)
     data = (packed.rows, packed.proj, packed.pscale, packed.pbias2,
             packed.self_codes, packed.self_aux)
     return sdef, data

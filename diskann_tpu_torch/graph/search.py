@@ -15,7 +15,11 @@ Three dedup modes:
   recently scored ids, or repeated within the hop are dropped before they
   are scored (the reference's visited set, exact up to the ring's age);
 - ``"list"`` (packed search): the best-list and the hop only; a node that
-  fell off the list may be scored again (extra cmps, identical results);
+  fell off the list may be scored again (extra cmps, identical results).
+  Through the packed scorer, the plain list walk (no filter, reserve,
+  quota, pool or resume) runs each hop as two kernels, K1 then K3
+  (`ScorerDef.list_hop`, `ops/kernels/hop_merge.py`), with the results of
+  the loop below;
 - ``"merge"`` (build): duplicates are dropped inside the merge sort — the
   same id always carries the same distance, so sorting by (distance, id)
   lands its copies side by side.
@@ -46,6 +50,7 @@ import torch
 from diskann_tpu_torch.graph import steps
 from diskann_tpu_torch.graph.scorers import ScorerDef, full_precision_scorer
 from diskann_tpu_torch.ops.distance import Metric
+from diskann_tpu_torch.ops.kernels import hop_merge
 from diskann_tpu_torch.ops.topk import (
     SENTINEL, grouped_ranks, isin_rows, mask_duplicates_sorted, sort_lex,
     sort_with,
@@ -331,25 +336,39 @@ def beam_search_scored_steps(
     pool_d = torch.full((b, p), _INF, device=dev)
     pool_i = torch.full((b, p), -1, dtype=torch.int32, device=dev)
     pool_n = torch.zeros(b, dtype=torch.int32, device=dev)
-    pos = torch.arange(l, device=dev).expand(b, l)
-    # frontier and termination see the first l_search slots only
-    active = pos < l_search
+
+    # the plain list walk through a scorer that does whole hops (the
+    # packed one: K1 and K3, `ops/kernels/hop_merge.py`): the lists, cmps
+    # and hops of the loop below, one flag a hop
+    list_hop = None
+    if (dedup == "list" and scorer_def.list_hop is not None and not filtered
+            and not reserve and not use_quota and not record_pool
+            and resume_state is None and not return_state):
+        list_hop = scorer_def.list_hop(scorer_data, q_ctx, min(w, l), l)
+    if list_hop is not None:
+        st, flag = hop_merge.start(best_d, best_i, best_e, cmps, hops, w)
+        for it in range(max_hops):
+            if not (yield flag):
+                break
+            list_hop(st, it)
+            flag = st.flags[it % 2]
+        return SearchResult(
+            dists=st.best_d, ids=st.best_i, cmps=st.cmps, hops=st.hops,
+            pool_d=pool_d, pool_i=pool_i, pool_n=pool_n,
+            match_d=match_d, match_i=match_i,
+        )
+
+    # with a reserve, frontier and termination see the first l_search slots only
+    active = (torch.arange(l, device=dev) < l_search).expand(b, l) if reserve else None
 
     for it in range(max_hops):
-        unexp = (best_e == 0) & (best_i >= 0)
-        if reserve:
-            unexp &= active
-        if not (yield unexp.any()):
-            break
         # ---- 1. frontier: the W closest unexpanded entries per row ----
-        rank = unexp.cumsum(1) - 1
-        sel = unexp & (rank < w)
-        sel_pos = torch.sort(torch.where(sel, pos, l), dim=1).values[:, :w]
+        flag, sel_pos, beam_ids, next_e = hop_merge.frontier(best_i, best_e, w, active)
+        if not (yield flag):
+            break
+        best_e = next_e
         beam_valid = sel_pos < l
-        safe_pos = sel_pos.clamp_max(l - 1)
-        beam_ids = torch.where(beam_valid, best_i.gather(1, safe_pos), -1)
-        beam_d = best_d.gather(1, safe_pos)
-        best_e = torch.where(sel, 1, best_e)
+        beam_d = best_d.gather(1, sel_pos.clamp_max(l - 1))
         n_exp = beam_valid.sum(1, dtype=torch.int32)
 
         # ---- record the expanded pool (build-time prune candidates) ----

@@ -45,6 +45,10 @@ _SIGNATURES = {
                              _P, _P, _P, _P),
     # table, n_blocks, block_idx, vals, g, block_bytes, stream
     "block_patch_launch": (_P, _L, _P, _P, _L, _L, _P),
+    # ids, aux, dots, qscale, qsq, beam, beam_out, best_d, best_i, best_e,
+    # cmps, hops, flag_set, flag_clear, rows, w, rp, l, ids stride, dots
+    # stride, inner product, threads, hash bits, shared bytes, stream
+    "hop_merge_launch": (_P,) * 14 + (_L, _I, _I, _I, _L, _L, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

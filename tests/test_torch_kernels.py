@@ -1,9 +1,12 @@
-"""The port's kernels K1 (`fatrow_expand`) and K2 (`block_patch`).
+"""The port's kernels K1 (`fatrow_expand`), K2 (`block_patch`) and K3
+(`hop_merge`).
 
 On the CPU the wrappers run their plain PyTorch versions, which must be
 bitwise equal to the JAX Pallas kernels (run as `tests/test_kernels.py`
-runs them: `interpret=True`) and to their `*_ref` oracles.  The CUDA kernel
-against its plain version is checked on a CUDA card only (marker `cuda`).
+runs them: `interpret=True`) and to their `*_ref` oracles; K3 replaces no
+Pallas kernel, and its plain version is the walk's own code (held against
+the JAX walk in `tests/test_torch_search.py`).  Each CUDA kernel against
+its plain version is checked on a CUDA card only (marker `cuda`).
 A CUDA host need not have JAX (the port does not use it), so the JAX
 package is imported inside the CPU tests only, and the `cuda` cases run
 without `tests/conftest.py` (which imports JAX):
@@ -18,6 +21,7 @@ import torch
 from diskann_tpu_torch.graph.packed import n_wrows
 from diskann_tpu_torch.ops.kernels import block_patch as k2
 from diskann_tpu_torch.ops.kernels import fatrow_expand as k1
+from diskann_tpu_torch.ops.kernels import hop_merge as k3
 from torch_port_helpers import cuda_device, n, rand_word_rows, t  # noqa: F401
 
 PATCH_BLOCK = 4096  # the JAX block_patch takes patch counts in multiples of this
@@ -121,10 +125,13 @@ def test_block_patch_plain_skips_blocks_outside_the_table():
 def test_cpu_calls_leave_launch_counters_at_zero(monkeypatch):
     monkeypatch.setattr(k1, "launches", 0)
     monkeypatch.setattr(k2, "launches", 0)
+    monkeypatch.setattr(k3, "launches", 0)
     rows, beam, qiw = _expand_inputs(3, 32, 16, 16, 64)
     k1.fatrow_expand(t(rows), t(beam), t(qiw), rp=16, dp=64)
     k2.block_patch(t(rows[:64]), t(np.array([0, 3], np.int32)), t(rows[:16]))
-    assert (k1.launches, k2.launches) == (0, 0)
+    (*args, hop), st = _hop_inputs(3, 16, 8, 10, 1, "random", "cpu")
+    k3.hop_merge(*args, st, hop, rp=16, inner_product=False)
+    assert (k1.launches, k2.launches, k3.launches) == (0, 0, 0)
 
 
 def test_wrappers_reject_other_devices():
@@ -133,6 +140,171 @@ def test_wrappers_reject_other_devices():
         k1.fatrow_expand(meta, meta[0], meta[:1], rp=16, dp=64)
     with pytest.raises(ValueError):
         k2.block_patch(meta, meta[0, :1], meta)
+    (*args, hop), st = _hop_inputs(3, 16, 8, 10, 1, "random", "meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        k3.hop_merge(*args, st, hop, rp=16, inner_product=False)
+
+
+# K3: (rp, dp, L, W) of the batch and online cells' walk, of the churn
+# checkpoint's, and of the smallest packed row at W = 1
+K3_GEOMETRIES = [(84, 128, 24, 4), (88, 64, 90, 4), (16, 8, 10, 1)]
+# the rows' shapes: ids repeated within a hop, across beam slots and from
+# the list (few distinct ids); every row converged (no valid beam slot, the
+# list expanded); distances that tie, at the L-th place too; lists with
+# +inf tails; a batch of one row; the inner-product distance
+K3_CASES = ["random", "repeats", "converged", "ties", "inf_tail", "one_row",
+            "inner_product"]
+
+
+def _hop_inputs(seed, rp, dp, l, w, case, device):
+    """One hop's inputs to `hop_merge` for B rows on ``device``: K1's
+    outputs at (rp, dp) (-1 neighbours, ids repeated as ``case`` asks;
+    beyond rp the sections hold garbage the kernel must not read), each
+    query's scale and squared norm, and a `HopState` of sorted lists, a
+    beam with invalid slots and the flag this hop sets cleared."""
+    rng = np.random.default_rng(seed)
+    b = 1 if case == "one_row" else 48
+    idw, _, codr, cpr = k1._geometry(rp, dp)
+    nid = rp // 2 + 3 if case == "repeats" else 50 * rp * w
+    ids = rng.integers(0, nid, (b * w, idw * 128)).astype(np.int32)
+    ids[rng.random(ids.shape) < 0.1] = -1
+    ids[:, rp:] = rng.integers(-5, 5, (b * w, idw * 128 - rp))
+    if case == "ties":
+        # qsq + aux - 2 * dot * qscale exact and small: many equal distances
+        aux = rng.integers(0, 2, ids.shape).astype(np.float32)
+        dots = rng.integers(0, 2, (b * w, codr * cpr)).astype(np.int32)
+        qscale = np.full(b, 0.5, np.float32)
+        qsq = np.full(b, 1.0, np.float32)
+        ld = rng.integers(0, 3, (b, l)).astype(np.float32)
+    else:
+        aux = rng.uniform(0, 40, ids.shape).astype(np.float32)
+        dots = rng.integers(-127 * 127 * 4, 127 * 127 * 4, (b * w, codr * cpr)).astype(np.int32)
+        qscale = rng.uniform(1e-4, 1e-2, b).astype(np.float32)
+        qsq = rng.uniform(20, 60, b).astype(np.float32)
+        ld = rng.uniform(0, 80, (b, l)).astype(np.float32)
+    if case == "inner_product":
+        ld = -ld
+    ld = np.sort(ld, axis=1)
+    li = rng.choice(nid, size=(b, l)).astype(np.int32)
+    for r in range(b):                                # a list holds an id once
+        li[r] = rng.permutation(max(nid, l))[:l]
+    le = rng.integers(0, 2, (b, l)).astype(np.int32)
+    beam = rng.integers(0, nid, (b, w)).astype(np.int32)
+    beam[rng.random(beam.shape) < 0.2] = -1
+    if case == "inf_tail":
+        cut = rng.integers(0, l, b)
+        for r in range(b):
+            ld[r, cut[r]:], li[r, cut[r]:], le[r, cut[r]:] = np.inf, -1, 1
+    if case == "converged":
+        le[:] = 1
+        beam[:] = -1
+    hop = int(rng.integers(0, 4))
+    flags = np.ones(2, bool)
+    flags[hop % 2] = False               # the previous hop cleared this one
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    args = (dev(ids), dev(aux.view(np.int32)), dev(dots), dev(qscale), dev(qsq))
+    st = k3.HopState(dev(ld), dev(li), dev(le), dev(rng.integers(0, 99, b).astype(np.int32)),
+                     dev(rng.integers(0, 9, b).astype(np.int32)), dev(beam), dev(flags))
+    return args + (hop,), st
+
+
+def _run_k3(fn, args, st, rp, case):
+    *inputs, hop = args
+    st = st.clone()
+    fn(*inputs, st, hop, rp=rp, inner_product=case == "inner_product")
+    return st
+
+
+def _same_state(got, want):
+    for f in ("best_d", "best_i", "best_e", "cmps", "hops", "beam", "flags"):
+        a, b = getattr(got, f), getattr(want, f)
+        if a.dtype == torch.float32:                  # bitwise, -0.0 and inf too
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), f
+
+
+@pytest.mark.parametrize("case", K3_CASES)
+@pytest.mark.parametrize("rp,dp,l,w", K3_GEOMETRIES)
+def test_hop_merge_plain_keeps_the_lists_sorted_and_counts(rp, dp, l, w, case):
+    # the plain version on the CPU: lists stay sorted with distinct ids,
+    # cmps rises by the fresh candidates, hops by the valid beam slots, the
+    # next beam holds the first unexpanded entries (now expanded), and the
+    # flag says whether any entry was left unexpanded
+    (*args, hop), st = _hop_inputs(rp + l + w, rp, dp, l, w, case, "cpu")
+    got = _run_k3(k3.hop_merge, (*args, hop), st, rp, case)
+    d = got.best_d.numpy()
+    assert (d[:, 1:] >= d[:, :-1]).all()
+    for r in range(d.shape[0]):
+        ids = got.best_i[r].numpy()
+        live = ids[ids >= 0]
+        assert len(set(live.tolist())) == len(live)
+    assert torch.equal(got.hops - st.hops, (st.beam >= 0).sum(1, dtype=torch.int32))
+    assert (got.cmps >= st.cmps).all()
+    for r in range(d.shape[0]):
+        nb = got.beam[r][got.beam[r] >= 0]
+        pos = [int(np.flatnonzero(got.best_i[r].numpy() == i)[0]) for i in nb.tolist()]
+        assert all(got.best_e[r, p] == 1 for p in pos) and pos == sorted(pos)
+    left = bool(((got.best_e == 0) & (got.best_i >= 0)).any()) or bool((got.beam >= 0).any())
+    assert bool(got.flags[hop % 2]) == left and not bool(got.flags[(hop + 1) % 2])
+    if case == "converged":
+        assert torch.equal(got.best_i, st.best_i) and torch.equal(got.cmps, st.cmps)
+        assert (got.beam == -1).all() and not bool(got.flags.any())
+
+
+@pytest.mark.parametrize("rp,dp,l,w", K3_GEOMETRIES + [(84, 256, 200, 8)])
+def test_hop_merge_geometry_fits_the_walks(rp, dp, l, w):
+    threads, hbits, smem = k3.geometry(w * rp, l, w)
+    p = 1 << (w * rp - 1).bit_length()
+    assert threads % 32 == 0 and 32 <= threads <= k3.MAX_THREADS
+    assert threads == min(k3.MAX_THREADS, max(32, p // 4))
+    assert 2 * (w * rp + l) <= 1 << hbits < 4 * (w * rp + l)   # at most half full
+    assert smem % 16 == 0
+    assert smem >= 8 * p + 8 * (1 << hbits) + 8 * w * rp + 28 * l + 4 * w + 16
+    assert k3.fits(w * rp, l, w)
+    assert not k3.fits(64 * 256, l, 64)          # 16,384 candidates: the generic body
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K3_CASES)
+@pytest.mark.parametrize("rp,dp,l,w", K3_GEOMETRIES)
+def test_hop_merge_kernel_matches_plain(cuda_device, rp, dp, l, w, case):
+    args, st = _hop_inputs(rp + l + w, rp, dp, l, w, case, cuda_device)
+    before = k3.launches
+    got = _run_k3(k3.hop_merge, args, st, rp, case)
+    assert k3.launches == before + 1
+    want = _run_k3(k3.hop_merge_plain, args, st, rp, case)
+    torch.cuda.synchronize(cuda_device)
+    _same_state(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["device", "dtype", "shape", "stride", "too_wide"])
+def test_hop_merge_raises_on_inputs_it_does_not_take(cuda_device, fault):
+    # a CPU tensor among CUDA ones, int64 dots, one row too many of K1's
+    # ids, a non-contiguous list, more candidates than a block holds: a
+    # ValueError and no launch, never the plain version
+    (ids, aux, dots, qscale, qsq, hop), st = _hop_inputs(1, 84, 128, 24, 4, "random",
+                                                         cuda_device)
+    rp = 84
+    if fault == "device":
+        qscale = qscale.cpu()
+    elif fault == "dtype":
+        dots = dots.long()
+    elif fault == "shape":
+        ids = torch.cat([ids, ids[:1]])
+    elif fault == "stride":
+        st.best_d = torch.cat([st.best_d, st.best_d], 1)[:, ::2]
+    else:
+        rp = 4096
+        ids = ids.repeat(1, 32)
+        aux, dots = aux.repeat(1, 32), dots.repeat(1, 64)
+    before = k3.launches
+    with pytest.raises(ValueError, match="hop_merge"):
+        k3.hop_merge(ids, aux, dots, qscale, qsq, st, hop, rp=rp, inner_product=False)
+    assert k3.launches == before
 
 
 @pytest.mark.cuda

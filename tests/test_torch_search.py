@@ -12,7 +12,12 @@ search, multihop over the ring, and a pass resumed at a wider window
 after `grow_resume_state` with ``reseed_ring``.  The stepping forms
 (`beam_search_scored_steps`, `beam_search_steps`), driven by hand, give
 bitwise the plain calls' results, and a False answer ends the walk there.
+The packed scorer's whole hops (`ScorerDef.list_hop`: K1 and K3, here
+their plain versions) give bitwise the generic loop's results, and only
+the plain list walk at a beam one block holds takes them.
 """
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +40,7 @@ from diskann_tpu_torch.graph.search import (
     beam_search_steps, grow_resume_state, search_geometry,
 )
 from diskann_tpu_torch.ops.distance import Metric
+from diskann_tpu_torch.ops.kernels import hop_merge as k3
 from torch_port_helpers import jax_index_arrays, n, t
 
 NQ = 96
@@ -69,10 +75,11 @@ def _ctx_prep_torch(dp):
     return prep
 
 
-def _run_both(graphs, start_ids, filtered=False, resume=None, **kw):
+def _run_both(graphs, start_ids, filtered=False, resume=None, list_hop=False, **kw):
     """One search in each package on the same query context.  filtered:
     accept "hot" (30% of the nodes) with beta 0.5; resume: a (JAX, torch)
-    pair of ResumeStates to continue from."""
+    pair of ResumeStates to continue from; list_hop: the port's scorer
+    keeps its whole hops (the generic loop otherwise)."""
     jidx, tidx, q = graphs
     metric = jidx.config.metric
     jdef, jdata = j_packed_scorer(jidx.packed, metric)
@@ -100,7 +107,8 @@ def _run_both(graphs, start_ids, filtered=False, resume=None, **kw):
     want = j_search(jdef2, jdata, jidx.state.adjacency, jnp.asarray(start_ids),
                     jnp.asarray(packed_q), expand_r=jidx.packed.r_pack, **jkw)
     tdef, tdata = packed_scorer(tidx.packed, Metric(metric.value))
-    tdef2 = ScorerDef(tdef.name, _ctx_prep_torch(dp), tdef.score, tdef.expand)
+    tdef2 = ScorerDef(tdef.name, _ctx_prep_torch(dp), tdef.score, tdef.expand,
+                      tdef.list_hop if list_hop else None)
     got = beam_search_scored(tdef2, tdata, tidx.state.adjacency, t(start_ids),
                              t(packed_q), expand_r=tidx.packed.r_pack, **tkw)
     return want, got
@@ -133,6 +141,75 @@ def test_list_dedup_matches_jax(graphs, per_query, l_search, max_hops):
     np.testing.assert_array_equal(n(got.cmps), np.asarray(want.cmps))
     np.testing.assert_array_equal(n(got.hops), np.asarray(want.hops))
     np.testing.assert_allclose(n(got.dists), np.asarray(want.dists), rtol=1e-6)
+
+
+@pytest.mark.parametrize("per_query", [False, True])
+@pytest.mark.parametrize("l_search,max_hops", [(24, 6), (90, 9), (40, 512)])
+def test_list_hop_matches_jax(graphs, per_query, l_search, max_hops):
+    # the packed list walk through whole hops (K1, then K3's plain version)
+    rng = np.random.default_rng(l_search + max_hops + per_query)
+    want, got = _run_both(graphs, _starts(rng, graphs[0], per_query), list_hop=True,
+                          l_search=l_search, beam_width=4, max_hops=max_hops,
+                          dedup="list")
+    _assert_same(want, got)
+
+
+def _no_list_hop(sdef):
+    return dataclasses.replace(sdef, list_hop=None)
+
+
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.InnerProduct])
+@pytest.mark.parametrize("case", ["w4", "w1", "w8_short", "l_below_w", "trunc",
+                                  "padded_rows"])
+def test_list_hop_matches_the_generic_loop(graphs, metric, case):
+    # every SearchResult field bitwise: beam widths 1 to 8, a list shorter
+    # than the beam, merge_trunc, padded (converged-from-the-start) rows
+    jidx, tidx, q = graphs
+    rng = np.random.default_rng(len(case))
+    kw = dict(l_search=24, beam_width=4, max_hops=512)
+    kw.update({"w1": dict(beam_width=1), "w8_short": dict(beam_width=8, max_hops=3),
+               "l_below_w": dict(l_search=3), "trunc": dict(merge_trunc=True),
+               "padded_rows": dict(query_valid=t(rng.random(NQ) > 0.3))}.get(case, {}))
+    tdef, tdata = packed_scorer(tidx.packed, metric)
+    args = (tidx.state.adjacency, t(_starts(rng, jidx, True)), t(q))
+    kw.update(dedup="list", expand_r=tidx.packed.r_pack)
+    got = beam_search_scored(tdef, tdata, *args, **kw)
+    _assert_bitwise(got, beam_search_scored(_no_list_hop(tdef), tdata, *args, **kw))
+
+
+def test_only_the_plain_list_walk_takes_the_list_hop(graphs, monkeypatch):
+    # one K3 call a hop in the plain packed list walk; none in the walks
+    # that keep the generic body (merge and ring dedup, a reserve, a pool,
+    # a returned state, a filter, a diversity quota, a beam whose W x
+    # r_pack candidates one block cannot hold, a scorer without whole hops)
+    _, tidx, q = graphs
+    calls = []
+    plain = k3.hop_merge
+    monkeypatch.setattr(k3, "hop_merge", lambda *a, **kw: calls.append(a[6]) or plain(*a, **kw))
+    tdef, tdata = packed_scorer(tidx.packed, Metric.L2)
+    args = (tidx.state.adjacency, t(np.array([0, 5], np.int32)), t(q))
+    base = dict(l_search=24, beam_width=4, max_hops=5, expand_r=tidx.packed.r_pack)
+    beam_search_scored(tdef, tdata, *args, dedup="list", **base)
+    assert calls == [0, 1, 2, 3, 4]
+    cap = tidx.state.capacity
+    labels = LabelSet.from_lists([["hot"] if h else ["cold"] for h in
+                                  np.random.default_rng(9).random(cap) < 0.3], capacity=cap)
+    bypass = [dict(dedup="merge"), dict(dedup="ring"), dict(dedup="list", reserve=8),
+              dict(dedup="list", record_pool=True, pool_capacity=32),
+              dict(dedup="list", return_state=True),
+              dict(dedup="list", diverse_attrs=torch.zeros(cap, dtype=torch.int32),
+                   diverse_l=2),
+              dict(dedup="list", accept_data=labels.bits, filter_beta=0.5,
+                   accept_fn=compile_accept(parse_predicate("hot"), labels.vocab, cap))]
+    rp = tidx.packed.r_pack
+    wide = next(w for w in range(1, 4096) if not k3.fits(w * rp, w, w))
+    bypass.append(dict(dedup="list", l_search=wide, beam_width=wide, max_hops=2))
+    for kw in bypass:
+        calls.clear()
+        beam_search_scored(tdef, tdata, *args, **{**base, **kw})
+        assert not calls, kw
+    beam_search_scored(_no_list_hop(tdef), tdata, *args, dedup="list", **base)
+    assert not calls
 
 
 @pytest.mark.parametrize("beam_width,max_hops,pool", [(4, 12, 128), (2, 40, 64)])
