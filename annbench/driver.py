@@ -64,7 +64,8 @@ def schedule(arrivals: dict, horizon_s: float) -> np.ndarray:
 
 class Driver:
     """Runs a mix against ``system``, keeps the map between the stream's
-    rows and the system's slots, and records what the window did: each
+    rows and the system's slots (a sharded index's external ids, which
+    are the rows themselves), and records what the window did: each
     search's answer (for the reference), each call's span, the counters
     and, in the open loop, each request's latency."""
 
@@ -111,7 +112,8 @@ class Driver:
         d, slots, hops = self.system.search(q)
         self.answers.append({"q": qi, "rows": self._rows_of(slots), "dists": d,
                              "live": tuple(self.live)})
-        self.hops += int(np.asarray(hops).sum())
+        if hops is not None:       # a sharded search counts no hops
+            self.hops += int(np.asarray(hops).sum())
         self.queries += b
 
     def _insert(self, r: int) -> None:

@@ -1,6 +1,6 @@
 """Faults planted in the port, for the check that ``correct`` catches
-them: each patches `GraphIndex` in this process for the length of a
-``with`` block.
+them: each patches the port in this process for the length of a ``with``
+block.
 
 - ``insert-noop``: an insert into a built index that acknowledges its
   rows (returns fresh slots) and leaves the index unchanged;
@@ -9,12 +9,23 @@ them: each patches `GraphIndex` in this process for the length of a
   call), handing out slots past the capacity for the rows it dropped,
   which a search never returns and a delete skips;
 - ``delete-noop``: a delete that leaves the index unchanged;
-- ``half-batch``: a search that answers the first half of its batch and
-  leaves the rest out (no ids, infinite distances);
-- ``alter-answer``: a search whose first answer has its nearest id
-  changed where it is produced.
+- ``half-batch``: a search (`GraphIndex` or `ShardedGraphIndex`) that
+  answers the first half of its batch and leaves the rest out (no ids,
+  infinite distances);
+- ``alter-answer``: a search (either index) whose first answer has its
+  nearest id changed where it is produced;
+- ``shard-drop``: a sharded search whose last shard's lists never reach
+  the merge (no ids, infinite distances, as from a shard that holds
+  nothing).  With overlap every row of that shard lives in another shard
+  too, so the other walks can still find it;
+- ``exchange-drop``: a sharded search whose merge sees only the lists of
+  the mesh's first worker, the one on the merge's own card: the exchange
+  between cards left out;
+- ``merge-no-dedup``: a sharded search whose merge takes the best k of
+  the shards' lists without removing the second copy of a row that two
+  shards hold.
 
-The exchange between chips is not a fault a one-card cell can have.
+The exchange between cards is not a fault a one-card cell can have.
 """
 
 from __future__ import annotations
@@ -23,15 +34,34 @@ import contextlib
 
 import numpy as np
 
-FAULTS = ("insert-noop", "insert-drop", "delete-noop", "half-batch", "alter-answer")
+FAULTS = ("insert-noop", "insert-drop", "delete-noop", "half-batch", "alter-answer",
+          "shard-drop", "exchange-drop", "merge-no-dedup")
+
+
+def _searched(name: str, orig):
+    """``orig`` (a ``search`` method) with fault ``name`` planted in its answers."""
+    def search(self, queries, k=10, **kw):
+        d, i, stats = orig(self, queries, k, **kw)
+        d, i = d.copy(), i.copy()
+        if name == "half-batch":
+            half = (i.shape[0] + 1) // 2
+            d[half:], i[half:] = np.inf, -1
+        else:
+            rows = getattr(self, "n", None) or getattr(self, "next_ext", 1)
+            i[0, 0] = (i[0, 0] + 1) % max(rows, 1)
+        return d, i, stats
+    return search
 
 
 @contextlib.contextmanager
 def planted(name: str):
-    from diskann_tpu_torch.graph.index import GraphIndex
+    import torch
 
-    orig = {"insert": GraphIndex.insert, "delete": GraphIndex.delete,
-            "search": GraphIndex.search}
+    from diskann_tpu_torch.graph.index import GraphIndex
+    from diskann_tpu_torch.parallel import sharded
+    from diskann_tpu_torch.parallel.mesh import MeshShards
+
+    orig = {"insert": GraphIndex.insert, "delete": GraphIndex.delete}
 
     def insert(self, vectors):
         if self.n == 0:     # the build's insert, before the window
@@ -51,24 +81,41 @@ def planted(name: str):
     def delete(self, ids, **kw):
         return None
 
-    def search(self, queries, k=10, **kw):
-        d, i, stats = orig["search"](self, queries, k, **kw)
-        d, i = d.copy(), i.copy()
-        if name == "half-batch":
-            half = (i.shape[0] + 1) // 2
-            d[half:], i[half:] = np.inf, -1
-        else:
-            i[0, 0] = (i[0, 0] + 1) % max(self.n, 1)
-        return d, i, stats
+    walk = MeshShards.walk
 
-    patch = {"insert-noop": ("insert", insert), "insert-drop": ("insert", insert_drop),
-             "delete-noop": ("delete", delete),
-             "half-batch": ("search", search), "alter-answer": ("search", search)}
+    def walk_dropping(self, *a, **kw):
+        lists = walk(self, *a, **kw)
+        first = next(iter(self.of))       # the worker on the merge's card
+        lost = ([len(lists) - 1] if name == "shard-drop" else
+                [s for w, ss in self.of.items() if w != first for s in ss])
+        for s in lost:
+            d, i, c = lists[s]
+            lists[s] = (torch.full_like(d, float("inf")), torch.full_like(i, -1), c)
+        return lists
+
+    def merge_keeping_copies(all_d, all_i, k):
+        s, b, l = all_d.shape
+        md = all_d.permute(1, 0, 2).reshape(b, s * l)
+        mi = all_i.permute(1, 0, 2).reshape(b, s * l)
+        md, order = torch.sort(md, dim=1, stable=True)
+        return md[:, :k], torch.gather(mi, 1, order[:, :k])
+
+    patch = {"insert-noop": [(GraphIndex, "insert", insert)],
+             "insert-drop": [(GraphIndex, "insert", insert_drop)],
+             "delete-noop": [(GraphIndex, "delete", delete)],
+             "shard-drop": [(MeshShards, "walk", walk_dropping)],
+             "exchange-drop": [(MeshShards, "walk", walk_dropping)],
+             "merge-no-dedup": [(sharded, "_merge_topk_dedup", merge_keeping_copies)]}
+    for fault in ("half-batch", "alter-answer"):
+        patch[fault] = [(cls, "search", _searched(fault, cls.search))
+                        for cls in (GraphIndex, sharded.ShardedGraphIndex)]
     if name not in patch:
         raise ValueError(f"unknown fault {name!r}; one of {FAULTS}")
-    attr, fn = patch[name]
-    setattr(GraphIndex, attr, fn)
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in patch[name]]
+    for owner, attr, fn in patch[name]:
+        setattr(owner, attr, fn)
     try:
         yield
     finally:
-        setattr(GraphIndex, attr, orig[attr])
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)

@@ -6,7 +6,7 @@ from annbench.roofline import k2_bound, least_seconds
 
 LAYER = "kernels (ops/kernels)"
 UNIT = "%"
-MOVES = "churn_rows_per_s"
+MOVES = "recall_at_10"
 
 
 def read(run):

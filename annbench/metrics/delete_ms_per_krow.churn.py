@@ -3,7 +3,7 @@ around each), per 1,000 rows."""
 
 LAYER = "delete repair (graph/delete.py)"
 UNIT = "ms"
-MOVES = "churn_rows_per_s"
+MOVES = "recall_at_10"
 
 
 def read(run):

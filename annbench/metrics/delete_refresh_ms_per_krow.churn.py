@@ -7,7 +7,7 @@ from annbench import port_spans
 
 LAYER = "delete repair (graph/delete.py)"
 UNIT = "ms"
-MOVES = "churn_rows_per_s"
+MOVES = "recall_at_10"
 
 
 def read(run):

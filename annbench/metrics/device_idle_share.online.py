@@ -3,7 +3,7 @@ no copy: 1 - busy / wall, busy the union of the device's spans."""
 
 LAYER = "device"
 UNIT = "%"
-MOVES = "search_p95_ms"
+MOVES = "recall_at_10"
 
 
 def read(run):

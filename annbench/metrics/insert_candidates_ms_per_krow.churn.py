@@ -8,7 +8,7 @@ from annbench import port_spans
 
 LAYER = "insert batch (graph/build.py, graph/prune.py)"
 UNIT = "ms"
-MOVES = "churn_rows_per_s"
+MOVES = "recall_at_10"
 
 
 def read(run):

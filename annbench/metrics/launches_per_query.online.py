@@ -3,7 +3,7 @@
 
 LAYER = "host orchestration (graph/index.py)"
 UNIT = "launches"
-MOVES = "search_p95_ms"
+MOVES = "recall_at_10"
 
 
 def read(run):

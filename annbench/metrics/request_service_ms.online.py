@@ -4,7 +4,7 @@ spans the whole window."""
 
 LAYER = "host orchestration (graph/index.py)"
 UNIT = "ms"
-MOVES = "search_p95_ms"
+MOVES = "recall_at_10"
 
 
 def read(run):

@@ -7,7 +7,7 @@ from annbench import port_spans
 
 LAYER = "host orchestration (graph/index.py)"
 UNIT = "ms"
-MOVES = "search_p95_ms"
+MOVES = "recall_at_10"
 
 
 def read(run):

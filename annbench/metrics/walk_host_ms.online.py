@@ -7,7 +7,7 @@ from annbench import port_spans
 
 LAYER = "hop loop and packed scorer (graph/search.py, graph/scorers.py, graph/packed.py)"
 UNIT = "ms"
-MOVES = "search_p95_ms"
+MOVES = "recall_at_10"
 
 
 def read(run):

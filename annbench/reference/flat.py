@@ -31,7 +31,7 @@ class Exact:
             raise ValueError(f"unknown precision {precision!r}")
         no_tf32()
         b = cfg["build"]
-        cap = max(b["capacity"] or 0, base.shape[0])
+        cap = max(b.get("capacity") or 0, base.shape[0])
         self.x = torch.zeros((cap, base.shape[1]), device=base.device)
         self.x[: base.shape[0]] = base
         self.valid = torch.zeros(cap, dtype=torch.bool, device=base.device)

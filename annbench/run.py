@@ -6,17 +6,22 @@ machine:
 
 1. makes the cell's data and query pool from ``--seed`` on the card
    (`annbench.reference.synth`);
-2. builds the system under test (`annbench.system.Port`: the port's normal
-   entry, ``GraphIndex.build``, then ``attach_packed`` where the
-   configuration re-attaches); the first run in a checkout builds the
-   port's kernel library into its own ``_build/`` there;
+2. builds the system under test (`annbench.system.make`: `Port`, the
+   port's normal entry, ``GraphIndex.build``, then ``attach_packed`` where
+   the configuration re-attaches; or, for a configuration with a
+   ``shards`` block, `Sharded`: a ``ShardedGraphIndex`` on a mesh of one
+   worker process a card); the first run in a checkout builds the port's
+   kernel library into its own ``_build/`` there;
 3. runs the mix's warm-up cycles; set-up (``setup_s``) ends here, at the
    first timed call, and is counted from this process's start;
-4. drives the mix for ``--seconds`` (`annbench.driver`); with ``--trace 1``
-   then a traced sub-window (`annbench.tracing`);
-5. reads the peak memory, probes the acknowledged inserts, frees the
-   index, and judges every answer against the exact answers worked out
-   again from the seed (`annbench.reference.check`);
+4. drives the mix for ``--seconds`` (`annbench.driver`), timing the
+   system's ``HOST_SPANS`` on the host clock; with ``--trace 1`` then a
+   traced sub-window (`annbench.tracing`), in every mesh worker too;
+5. reads the peak memory (the fullest card's: on the caller's own card
+   its peak and its mesh worker's summed), probes the acknowledged
+   inserts, frees the index (and ends the mesh's workers), and judges
+   every answer against the exact answers worked out again from the seed
+   (`annbench.reference.check`);
 6. prints each number compared beside its limit as the last lines of
    standard error, and one JSON line as the last line of standard output:
    ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's
@@ -25,7 +30,8 @@ machine:
 
 It exits non-zero and prints no result when the card is missing or too
 few, when the port cannot be imported, and when JAX, jaxlib, flax or the
-JAX package ``diskann_tpu`` is loaded once the window has closed.
+JAX package ``diskann_tpu`` is loaded once the window has closed, in this
+process or in any mesh worker.
 """
 
 import time
@@ -59,17 +65,16 @@ from annbench.reference import check  # noqa: E402
 from annbench.reference.exact import percentile  # noqa: E402
 from annbench.reference.synth import Clustered  # noqa: E402
 from annbench.roofline import PEAKS  # noqa: E402
-from annbench.system import Port  # noqa: E402
-from annbench.tracing import Traced  # noqa: E402
+from annbench.system import make  # noqa: E402
+from annbench.tracing import (HostSpans, Traced, forbidden_modules,  # noqa: E402
+                              worker_peak_bytes)
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "diskann_tpu")
 PROBES = 1024
 
 
-def forbidden_modules() -> list[str]:
-    """Loaded modules whose top-level name, compared whole, is JAX's or the
-    JAX package's (``diskann_tpu_torch`` is neither)."""
-    return sorted({m.split(".")[0] for m in list(sys.modules)} & set(FORBIDDEN))
+class Forbidden(RuntimeError):
+    """A mesh worker of the run loaded JAX or the JAX package
+    (`annbench.tracing.FORBIDDEN`)."""
 
 
 def power_limit_w():
@@ -133,7 +138,7 @@ def run_cell(bench: manifest.Bench, name: str, *, seed: int, seconds: float, tra
     base = data.rows(0, n)
     times["data_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    system = (make_system or Port)(cfg, base)
+    system = (make_system or make)(cfg, base)
     del base
     if cuda:
         torch.cuda.synchronize(device)
@@ -149,10 +154,13 @@ def run_cell(bench: manifest.Bench, name: str, *, seed: int, seconds: float, tra
     segments = (lambda: torch.cuda.memory_stats(device).get("segment.all.allocated", 0)
                 if cuda else 0)
     seg0 = segments()
-    tracer = Traced(device) if trace else None
+    on_cards = getattr(system, "on_cards", None)
+    tracer = Traced(device, on_cards) if trace else None
+    host = HostSpans(getattr(system, "HOST_SPANS", ()))
     try:
-        rec = driver.run(seconds, traced=float(mix["trace_seconds"]) if trace else 0.0,
-                         on_trace=lambda: tracer)
+        with host:
+            rec = driver.run(seconds, traced=float(mix["trace_seconds"]) if trace else 0.0,
+                             on_trace=lambda: tracer)
     except Exception:
         traceback.print_exc()
         rec = {"window_s": 0.0, "spans": driver.spans, "latencies": driver.latencies,
@@ -163,6 +171,11 @@ def run_cell(bench: manifest.Bench, name: str, *, seed: int, seconds: float, tra
     # allocations the caching allocator had to ask the driver for after set-up
     new_segments = segments() - seg0
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    card_peaks = on_cards(worker_peak_bytes) if on_cards and cuda else {}
+    loaded = {c: m for c, m in on_cards(forbidden_modules).items() if m} if on_cards else {}
+    if card_peaks:
+        own = f"cuda:{device.index or 0}"
+        peak = max(b + (peak if c == own else 0) for c, b in card_peaks.items())
     t = time.perf_counter()
     probes, built = [], []
     if rec["failed"] == 0:
@@ -177,17 +190,21 @@ def run_cell(bench: manifest.Bench, name: str, *, seed: int, seconds: float, tra
 
     # what a reader sees; ``numbers`` (the comparison's) joins it below
     run = SimpleNamespace(window=rec, setup_s=setup_s, tracer=tracer, trace=summary,
+                          host_spans=host,
                           peak=PEAKS.get(torch.cuda.get_device_name(device)) if cuda else None)
     if trace:
         metrics = read_metrics(bench, name, "per_layer", run)
         tracer.k1_calls.clear()
         tracer.k2_calls.clear()
 
+    rows_per_shard = getattr(system, "rows_per_shard", None)
     system.close()
     driver.system = system = None
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
+    if loaded:
+        raise Forbidden(f"mesh workers loaded after the window: {loaded}")
     t = time.perf_counter()
     run.numbers = check.measure(driver.answers, probes, data, pool_dev, k=cfg["k"],
                                 query_dtype=cfg["serve"]["search"].get("query_dtype"),
@@ -197,7 +214,8 @@ def run_cell(bench: manifest.Bench, name: str, *, seed: int, seconds: float, tra
     lat = [x * 1e3 for x in rec["latencies"]]
     print(f"annbench: {name} seed {seed}: " + json.dumps({
         **times, "setup_s": setup_s, "cycles": len(rec["spans"]),
-        "new_segments": new_segments,
+        "new_segments": new_segments, "card_peaks": card_peaks,
+        "rows_per_shard": rows_per_shard,
         "self_search_misses": {"inserted": misses(probes), "built": misses(built)},
         "latency_ms": {p: percentile(lat, p) for p in (50, 95, 99)} if lat else None,
         "late_ms_max": max(rec["late"]) * 1e3 if rec["late"] else None,
@@ -237,8 +255,12 @@ def main(argv=None) -> int:
               f"machine has {torch.cuda.device_count() if torch.cuda.is_available() else 0}",
               file=sys.stderr)
         return 2
-    result, rows = run_cell(bench, args.workload, seed=args.seed, seconds=args.seconds,
-                            trace=bool(args.trace), device="cuda:0", t0=T0)
+    try:
+        result, rows = run_cell(bench, args.workload, seed=args.seed, seconds=args.seconds,
+                                trace=bool(args.trace), device="cuda:0", t0=T0)
+    except Forbidden as e:
+        print(f"annbench: {e}", file=sys.stderr)
+        return 3
     found = forbidden_modules()
     if found:
         print(f"annbench: loaded after the window: {found}", file=sys.stderr)

@@ -1,13 +1,27 @@
-"""The system under test: a `diskann_tpu_torch.GraphIndex`, built and served
-as a configuration file says, behind the four calls the traffic makes.
+"""The system under test, built and served as a configuration file says,
+behind the four calls the traffic makes (``search``, ``insert``,
+``delete``, ``close``):
 
-This is the only module of the benchmark that imports the port.
+- `Port`: one `diskann_tpu_torch.GraphIndex` on one card;
+- `Sharded`, for a configuration with a ``shards`` block: a
+  `ShardedGraphIndex` on a `Mesh` of one worker process a card (on the
+  CPU, one worker process a shard).
+
+`make` picks one.  This is the only module of the benchmark that imports
+the port.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
+
+
+def make(cfg: dict, base: torch.Tensor):
+    """The system ``cfg`` describes, built over ``base``."""
+    return Sharded(cfg, base) if "shards" in cfg else Port(cfg, base)
 
 
 class Port:
@@ -46,3 +60,89 @@ class Port:
 
     def close(self) -> None:
         self.index = None
+
+
+class Sharded:
+    """A `ShardedGraphIndex` over ``base``, built as `chip_smoke.py`'s
+    ``[sharded6m]`` builds it: ``kmeans_partition`` of the base on its
+    device, each row in its ``overlap`` nearest shards; shard ``s`` in mesh
+    worker ``s`` (on card ``s``), with room for the largest shard's rows
+    rounded up to ``build.cap_round``; the base inserted in order in calls
+    of ``build.insert_call_rows``, so external id equals row; then
+    ``attach_packed``.  Later inserts go to their ``overlap`` nearest
+    k-means centres, and get the next external ids, which are again their
+    rows in the stream.
+
+    The host's cores are split evenly over the caller and the ``count``
+    workers: the caller's torch thread count, which each worker takes
+    when the mesh starts, is set to ``cores // (count + 1)`` until
+    `close`, so that the processes do not each spin every core.
+
+    ``HOST_SPANS`` names the port's functions that the run times on the
+    host clock around every call (`annbench.tracing.HostSpans`)."""
+
+    HOST_SPANS = (("diskann_tpu_torch.parallel.mesh", "MeshShards.walk", "mesh.walk"),
+                  ("diskann_tpu_torch.parallel.sharded", "ShardedGraphIndex._merged",
+                   "sharded.merged"))
+
+    def __init__(self, cfg: dict, base: torch.Tensor):
+        from diskann_tpu_torch import GraphConfig
+        from diskann_tpu_torch.parallel import Mesh, ShardedGraphIndex, kmeans_partition
+
+        if cfg["data"]["metric"] != "l2":
+            raise ValueError("the benchmark's reference computes squared L2 only")
+        sh, b, s = cfg["shards"], cfg["build"], cfg["serve"]
+        if sh["partition"] != "kmeans" or sh["shards_per_card"] != 1:
+            raise ValueError(f"unsupported shards block {sh}")
+        count, self.overlap = int(sh["count"]), int(sh["overlap"])
+        dev = base.device
+        centres, assign = kmeans_partition(base, count, overlap=self.overlap)
+        self.centres = torch.as_tensor(centres, device=dev)
+        self.rows_per_shard = np.bincount(assign.ravel(), minlength=count).tolist()
+        step, rnd = int(b["insert_call_rows"]), int(b["cap_round"])
+        cap = -(-max(self.rows_per_shard) // rnd) * rnd
+        cards = ([torch.device("cuda", c) for c in range(count)] if dev.type == "cuda"
+                 else [dev] * count)
+        self.threads_was = torch.get_num_threads()
+        torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // (count + 1)))
+        self.mesh = Mesh(cards)
+        self.index = ShardedGraphIndex(self.mesh, base.shape[1], GraphConfig(**b["graph"]),
+                                       cap_per_shard=cap)
+        x = base.cpu().numpy()
+        for off in range(0, x.shape[0], step):
+            self.index.insert(x[off:off + step], assign[off:off + step], on_overflow="error")
+        self.index.attach_packed(dp=s["attach_packed_dp"])
+        self.k = cfg["k"]
+        self.search_kw = s["search"]
+
+    def search(self, queries: np.ndarray):
+        """(distances [B, k], external ids [B, k], None: a sharded search
+        counts comparisons, not hops)."""
+        d, i, _ = self.index.search(queries, self.k, **self.search_kw)
+        return d, i, None
+
+    def insert(self, vectors: torch.Tensor) -> np.ndarray:
+        v = vectors.to(self.centres.device).float()
+        d = (v * v).sum(1, keepdim=True) - 2.0 * v @ self.centres.T \
+            + (self.centres * self.centres).sum(1)
+        assign = torch.argsort(d, dim=1, stable=True)[:, :self.overlap]
+        return np.asarray(self.index.insert(v.cpu().numpy(), assign.cpu().numpy()), np.int64)
+
+    def delete(self, ext_ids: np.ndarray) -> None:
+        self.index.delete(ext_ids)
+
+    def on_cards(self, fn, *args) -> dict:
+        """``fn(*args)`` in every mesh worker (a function importable by name
+        there): {"<device type>:<worker>": result}, worker ``w`` on card
+        ``w``."""
+        return {f"{d.type}:{w}": r
+                for w, (d, r) in enumerate(zip(self.mesh.devices, self.mesh.run(fn, *args)))}
+
+    def close(self) -> None:
+        """Drop the index, end the mesh's workers, waiting for each, and give
+        the caller its thread count back."""
+        self.index = None
+        if self.mesh is not None:
+            self.mesh._finalizer()
+            self.mesh = None
+            torch.set_num_threads(self.threads_was)

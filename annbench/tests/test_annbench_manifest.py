@@ -77,7 +77,11 @@ def test_paths_and_command():
 
 
 def test_every_cell_one_chip_and_each_pair_once():
-    assert all(w["chips"] == 1 for w in SPEC["workloads"])
+    # one chip, but for at most a quarter of the cells (rounded down), or one
+    # cell, on four: those whose state exists only across cards
+    assert all(w["chips"] in (1, 4) for w in SPEC["workloads"])
+    four = sum(w["chips"] == 4 for w in SPEC["workloads"])
+    assert four <= max(1, len(SPEC["workloads"]) // 4)
     pairs = [(w["config"], w["traffic"]) for w in SPEC["workloads"]]
     assert len(pairs) == len(set(pairs))
     used = {w["config"] for w in SPEC["workloads"]}
