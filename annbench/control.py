@@ -7,9 +7,11 @@ the card (the benchmark's own runs never run it):
 
 Without ``--fault``: the exact search (`annbench.reference.flat.Exact`) put
 in the port's place, computing in ``--precision`` (TF32, the precision
-next below the configurations' float32), driven by the cell's own traffic
-at the cell's own size.  With ``--fault``: the port itself with each fault
-of `annbench.faults` planted in turn (``none``: none, a sound reading).
+next below the configurations' float32; bf16, the product rounded to
+bfloat16, for vectors on the uint8 grid, which TF32 holds exactly),
+driven by the cell's own traffic at the cell's own size.  With
+``--fault``: the port itself with each fault of `annbench.faults`
+planted in turn (``none``: none, a sound reading).
 Where the cell's mix only searches, a seed's faults all search one index,
 built once (the faults patch the calls, not the index).  Prints, per seed
 and fault, one JSON line: ``correct`` and every number compared, beside
@@ -46,9 +48,9 @@ class Reused:
     def __init__(self):
         self.built = None
 
-    def __call__(self, cfg, base):
+    def __call__(self, cfg, base, **labelled):
         if self.built is None:
-            self.built = system.make(cfg, base)
+            self.built = system.make(cfg, base, **labelled)
         return self
 
     def __getattr__(self, name):

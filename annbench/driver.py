@@ -17,6 +17,10 @@ gets the same arrival times.
 seeded place, ``warmup_cycles`` the cycles run in set-up, and
 ``trace_seconds`` the length of the traced sub-window of a ``--trace 1``
 run, which continues the traffic after the window.
+
+For a label-filtered system the pool's queries come with one predicate
+each (``preds``), and a search step hands the system its queries'
+predicates with their vectors.
 """
 
 from __future__ import annotations
@@ -70,12 +74,13 @@ class Driver:
     and, in the open loop, each request's latency."""
 
     def __init__(self, mix: dict, system, data, pool: np.ndarray, n_base: int,
-                 seed: int):
+                 seed: int, preds: np.ndarray | None = None):
         validate(mix)
         self.mix = mix
         self.system = system
         self.data = data
         self.pool = pool
+        self.preds = preds
         self.seed = seed
         self.live = [0, n_base]            # rows [lo, hi) are live
         self.row_slot = np.arange(n_base, dtype=np.int64)
@@ -109,7 +114,11 @@ class Driver:
         self.cursor = int(qi[-1] + 1) % n
         # a slice of the pool where it does not wrap: no copy in the window
         q = self.pool[c:c + b] if c + b <= n else self.pool[qi]
-        d, slots, hops = self.system.search(q)
+        if self.preds is None:
+            d, slots, hops = self.system.search(q)
+        else:
+            d, slots, hops = self.system.search(
+                q, self.preds[c:c + b] if c + b <= n else self.preds[qi])
         self.answers.append({"q": qi, "rows": self._rows_of(slots), "dists": d,
                              "live": tuple(self.live)})
         if hops is not None:       # a sharded search counts no hops

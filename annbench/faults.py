@@ -23,7 +23,13 @@ block.
   between cards left out;
 - ``merge-no-dedup``: a sharded search whose merge takes the best k of
   the shards' lists without removing the second copy of a row that two
-  shards hold.
+  shards hold;
+- ``filter-ignored``: a label-filtered search (``search_filtered``) that
+  answers with the unfiltered search's answer;
+- ``and-as-or``: a label-filtered search that evaluates two tags ANDed as
+  the two ORed;
+- ``short-answer``: a label-filtered search whose every answer has its
+  last entry set to -1 (no row, distance inf).
 
 The exchange between cards is not a fault a one-card cell can have.
 """
@@ -35,7 +41,10 @@ import contextlib
 import numpy as np
 
 FAULTS = ("insert-noop", "insert-drop", "delete-noop", "half-batch", "alter-answer",
-          "shard-drop", "exchange-drop", "merge-no-dedup")
+          "shard-drop", "exchange-drop", "merge-no-dedup", "filter-ignored", "and-as-or",
+          "short-answer")
+# the keyword arguments of search_filtered that the unfiltered search takes too
+_SEARCH_KW = ("l_search", "beam_width", "mode", "rerank_l", "max_hops", "query_dtype")
 
 
 def _searched(name: str, orig):
@@ -51,6 +60,23 @@ def _searched(name: str, orig):
             i[0, 0] = (i[0, 0] + 1) % max(rows, 1)
         return d, i, stats
     return search
+
+
+def _filtered(name: str, orig):
+    """``orig`` (``GraphIndex.search_filtered``) with fault ``name`` planted;
+    a predicate is a string, or a sequence of one a query."""
+    def search_filtered(self, queries, predicate, k=10, **kw):
+        if name == "filter-ignored":
+            return self.search(queries, k, **{a: v for a, v in kw.items() if a in _SEARCH_KW})
+        if name == "and-as-or":
+            predicate = (predicate.replace("&", "|") if isinstance(predicate, str)
+                         else [p.replace("&", "|") for p in predicate])
+        d, i, stats = orig(self, queries, predicate, k, **kw)
+        if name == "short-answer":
+            d, i = d.copy(), i.copy()
+            d[:, -1], i[:, -1] = np.inf, -1
+        return d, i, stats
+    return search_filtered
 
 
 @contextlib.contextmanager
@@ -109,6 +135,9 @@ def planted(name: str):
     for fault in ("half-batch", "alter-answer"):
         patch[fault] = [(cls, "search", _searched(fault, cls.search))
                         for cls in (GraphIndex, sharded.ShardedGraphIndex)]
+    for fault in ("filter-ignored", "and-as-or", "short-answer"):
+        patch[fault] = [(GraphIndex, "search_filtered",
+                         _filtered(fault, GraphIndex.search_filtered))]
     if name not in patch:
         raise ValueError(f"unknown fault {name!r}; one of {FAULTS}")
     saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in patch[name]]

@@ -59,6 +59,13 @@ class Bench:
                 if cell in m.get("workloads", [cell] if m["moves"] in names else [])]
 
 
+def serve_kw(cfg: dict) -> dict:
+    """The keyword arguments of a configuration's search: ``serve.filtered``
+    for a filtered configuration (one with a ``labels`` block), else
+    ``serve.search``."""
+    return cfg["serve"]["filtered" if "labels" in cfg else "search"]
+
+
 def reader(name: str):
     """The reader module of metric ``name``."""
     path = HERE / "metrics" / f"{name}.py"

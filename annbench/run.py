@@ -5,13 +5,16 @@ machine:
     python3 annbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 1. makes the cell's data and query pool from ``--seed`` on the card
-   (`annbench.reference.synth`);
+   (`annbench.reference.synth`), for a configuration with a ``labels``
+   block with the rows' tags and a predicate a query;
 2. builds the system under test (`annbench.system.make`: `Port`, the
    port's normal entry, ``GraphIndex.build``, then ``attach_packed`` where
-   the configuration re-attaches; or, for a configuration with a
-   ``shards`` block, `Sharded`: a ``ShardedGraphIndex`` on a mesh of one
-   worker process a card); the first run in a checkout builds the port's
-   kernel library into its own ``_build/`` there;
+   the configuration re-attaches; for a configuration with a ``shards``
+   block, `Sharded`: a ``ShardedGraphIndex`` on a mesh of one worker
+   process a card; for one with a ``labels`` block, `Filtered`: `Port`'s
+   index with the tags attached, searched with a predicate a query); the
+   first run in a checkout builds the port's kernel library into its own
+   ``_build/`` there;
 3. runs the mix's warm-up cycles; set-up (``setup_s``) ends here, at the
    first timed call, and is counted from this process's start;
 4. drives the mix for ``--seconds`` (`annbench.driver`), timing the
@@ -63,7 +66,7 @@ from annbench import manifest  # noqa: E402
 from annbench.driver import Driver  # noqa: E402
 from annbench.reference import check  # noqa: E402
 from annbench.reference.exact import percentile  # noqa: E402
-from annbench.reference.synth import Clustered  # noqa: E402
+from annbench.reference.synth import Clustered, Tagged  # noqa: E402
 from annbench.roofline import PEAKS  # noqa: E402
 from annbench.system import make  # noqa: E402
 from annbench.tracing import (HostSpans, Traced, forbidden_modules,  # noqa: E402
@@ -136,15 +139,22 @@ def run_cell(bench: manifest.Bench, name: str, *, seed: int, seconds: float, tra
     pool_dev = data.queries(int(mix["query_pool"]))
     pool = pool_dev.cpu().numpy()
     base = data.rows(0, n)
+    tags = preds = None
+    labelled = {}
+    if "labels" in cfg:
+        tags = Tagged(seed, cfg, data)
+        preds = tags.predicates(pool.shape[0], n)
+        labelled["labels"] = tags.rows(0, n)
     times["data_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    system = (make_system or make)(cfg, base)
-    del base
+    system = (make_system or make)(cfg, base, **labelled)
+    del base, labelled
     if cuda:
         torch.cuda.synchronize(device)
     times["build_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    driver = Driver(mix, system, data, pool, n, seed)
+    driver = Driver(mix, system, data, pool, n, seed,
+                    preds=None if preds is None else preds.cpu().numpy())
     driver.warm()
     if cuda:
         torch.cuda.synchronize(device)
@@ -207,8 +217,8 @@ def run_cell(bench: manifest.Bench, name: str, *, seed: int, seconds: float, tra
         raise Forbidden(f"mesh workers loaded after the window: {loaded}")
     t = time.perf_counter()
     run.numbers = check.measure(driver.answers, probes, data, pool_dev, k=cfg["k"],
-                                query_dtype=cfg["serve"]["search"].get("query_dtype"),
-                                failed=rec["failed"])
+                                query_dtype=manifest.serve_kw(cfg).get("query_dtype"),
+                                failed=rec["failed"], labels=tags, preds=preds)
     correct, rows = check.judge(run.numbers, cfg["limits"])
     times["reference_s"] = time.perf_counter() - t
     lat = [x * 1e3 for x in rec["latencies"]]
@@ -220,7 +230,9 @@ def run_cell(bench: manifest.Bench, name: str, *, seed: int, seconds: float, tra
         "latency_ms": {p: percentile(lat, p) for p in (50, 95, 99)} if lat else None,
         "late_ms_max": max(rec["late"]) * 1e3 if rec["late"] else None,
         "service_ms": {p: percentile(rec["service"], p) * 1e3 for p in (5, 50, 95, 99, 100)}
-        if rec["service"] else None}), file=sys.stderr)
+        if rec["service"] else None,
+        **({"recall_by_band": run.numbers["recall_by_band"]}
+           if "recall_by_band" in run.numbers else {})}), file=sys.stderr)
 
     if not trace:
         metrics = read_metrics(bench, name, "end_to_end", run)

@@ -5,7 +5,10 @@ behind the four calls the traffic makes (``search``, ``insert``,
 - `Port`: one `diskann_tpu_torch.GraphIndex` on one card;
 - `Sharded`, for a configuration with a ``shards`` block: a
   `ShardedGraphIndex` on a `Mesh` of one worker process a card (on the
-  CPU, one worker process a shard).
+  CPU, one worker process a shard);
+- `Filtered`, for a configuration with a ``labels`` block: `Port`'s index
+  with the rows' tags attached, every search step one label-filtered
+  search with a predicate a query.
 
 `make` picks one.  This is the only module of the benchmark that imports
 the port.
@@ -19,9 +22,12 @@ import numpy as np
 import torch
 
 
-def make(cfg: dict, base: torch.Tensor):
-    """The system ``cfg`` describes, built over ``base``."""
-    return Sharded(cfg, base) if "shards" in cfg else Port(cfg, base)
+def make(cfg: dict, base: torch.Tensor, labels=None):
+    """The system ``cfg`` describes, built over ``base`` (and, for a
+    filtered configuration, the base rows' tags ``labels``, CSR)."""
+    if "shards" in cfg:
+        return Sharded(cfg, base)
+    return Filtered(cfg, base, labels) if "labels" in cfg else Port(cfg, base)
 
 
 class Port:
@@ -44,7 +50,7 @@ class Port:
             self.index.attach_packed(dp=s["attach_packed_dp"])
         self.index.router_compute = s["router_compute"]
         self.k = cfg["k"]
-        self.search_kw = s["search"]
+        self.search_kw = s.get("search")
         self.delete_kw = cfg.get("delete") or {}
 
     def search(self, queries: np.ndarray):
@@ -60,6 +66,67 @@ class Port:
 
     def close(self) -> None:
         self.index = None
+
+
+class Filtered(Port):
+    """`Port`'s index, built as `Port` builds it, with the base rows' tags
+    attached (``attach_labels``, tag ``i`` named ``str(i)``), searched
+    through ``search_filtered`` with the configuration's
+    ``serve.filtered`` and each query's own predicate (one tag, or two
+    ANDed: ``"3 & 17"``).
+
+    A port that sets ``diskann_tpu_torch.filters.PER_QUERY_PREDICATES``
+    takes the tags as CSR (``attach_labels((indptr, tags))``, two integer
+    arrays) and a search step's B predicates in one call
+    (``search_filtered(queries, [B predicates], k, ...)``).  Without it,
+    the tags go in as lists of names, and a step is one call per distinct
+    predicate among its queries, the answers put back in query order.
+
+    Inserted rows would come without tags: a filtered system takes no
+    inserts."""
+
+    def __init__(self, cfg: dict, base: torch.Tensor, labels):
+        from diskann_tpu_torch import filters
+
+        super().__init__(cfg, base)
+        self.filtered_kw = cfg["serve"]["filtered"]
+        self.per_query = bool(getattr(filters, "PER_QUERY_PREDICATES", False))
+        indptr, tags = (t.cpu().numpy() for t in labels)
+        if self.per_query:
+            self.index.attach_labels((indptr, tags))
+        else:
+            names = np.array([str(t) for t in range(cfg["labels"]["vocab"])], dtype=object)
+            flat = names[tags].tolist()
+            self.index.attach_labels([flat[a:b] for a, b in
+                                      zip(indptr[:-1].tolist(), indptr[1:].tolist())])
+
+    def search(self, queries: np.ndarray, preds: np.ndarray):
+        """(distances [B, k], slot ids [B, k], hops [B]) of ``queries`` [B, d]
+        under ``preds`` [B, 2] (tag ids; a second -1: one tag)."""
+        names = [str(a) if b < 0 else f"{a} & {b}" for a, b in preds.tolist()]
+        if self.per_query:
+            d, i, stats = self.index.search_filtered(queries, names, self.k,
+                                                     **self.filtered_kw)
+            return d, i, stats.hops
+        key = preds[:, 0].astype(np.int64) * (1 << 32) + preds[:, 1] + 1
+        _, first, inv = np.unique(key, return_index=True, return_inverse=True)
+        order = np.argsort(inv.reshape(-1), kind="stable")
+        ends = np.cumsum(np.bincount(inv.reshape(-1)))
+        out = None
+        for g, (at, end) in enumerate(zip(np.concatenate([[0], ends[:-1]]), ends)):
+            sel = order[at:end]
+            d, i, stats = self.index.search_filtered(queries[sel], names[first[g]], self.k,
+                                                     **self.filtered_kw)
+            if out is None:
+                out = (np.empty((len(names), self.k), d.dtype),
+                       np.empty((len(names), self.k), i.dtype),
+                       np.empty(len(names), stats.hops.dtype))
+            out[0][sel], out[1][sel], out[2][sel] = d, i, stats.hops
+        return out
+
+    def insert(self, vectors: torch.Tensor) -> np.ndarray:
+        raise NotImplementedError("a filtered system takes no inserts: the rows would "
+                                  "come without tags")
 
 
 class Sharded:

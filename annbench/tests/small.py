@@ -60,3 +60,16 @@ SHARDED = {
         "traffic": {"query_pool": 1024, "cycle": [{"op": "search", "queries": 256}],
                     "trace_seconds": 0.3}},
 }
+
+# the filtered cell, held back too: 192-d on the uint8 grid and all 200,386
+# tags kept, 3,000 rows of 64 clusters; calls of 64 queries, since the port
+# makes one call per distinct predicate among them
+FILTERED = {
+    "yfcc.filtered-batch": {
+        "config": {"data": {"n": 3000, "clusters": 64, "slice_rows": 1000},
+                   "build": {"insert_batch_size": 512},
+                   "serve": {"search_batch_size": 256, "attach_packed_dp": 64},
+                   "limits": {"recall_at_10": {"min": 0.5}}},
+        "traffic": {"query_pool": 256, "cycle": [{"op": "search", "queries": 64}],
+                    "warmup_cycles": 1, "trace_seconds": 0.3}},
+}

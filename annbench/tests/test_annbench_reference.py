@@ -196,3 +196,27 @@ def test_least_seconds_takes_the_larger_bound():
     peak = roofline.PEAKS["NVIDIA H100 80GB HBM3"]
     assert roofline.least_seconds(3.35e12, 0.0, peak) == pytest.approx(1.0)
     assert roofline.least_seconds(0.0, 1.979e15, peak) == pytest.approx(1.0)
+
+
+def test_measure_reads_as_before_on_a_recorded_unfiltered_answer_set():
+    """Answers of the bf16 control through four churn cycles, with a deleted
+    row, a repeat and a missing row planted, give the numbers the
+    comparison gave before it judged filtered answers (recorded then)."""
+    data = synth.Clustered(2**31 + 4242, DATA, "cpu")
+    pool = data.queries(48)
+    mix = {"loop": "closed", "query_pool": 48, "warmup_cycles": 0, "trace_seconds": 0,
+           "cycle": [{"op": "delete", "rows": 40}, {"op": "insert", "rows": 40},
+                     {"op": "search", "queries": 20}]}
+    drv = driver.Driver(mix, Exact(CFG, data.rows(0, 300), precision="bf16"), data,
+                        pool.numpy(), 300, seed=7)
+    for _ in range(4):
+        drv.cycle()
+    a = drv.answers
+    a[0]["rows"][0, 0] = 3
+    a[1]["rows"][2, 1] = a[1]["rows"][2, 0]
+    a[2]["rows"][5, 9] = -1
+    recorded = {None: 0.07277025458686856, "float16": 0.07307833437703065}
+    for wire, gap in recorded.items():
+        got = check.measure(a, [], data, pool, k=10, query_dtype=wire, failed=0)
+        assert got == {"failed_calls": 0, "bad_ids": 3, "dist_gap": gap,
+                       "recall_at_10": 0.96625, "recall_min": 0.95}
