@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA card.
 
     python3 chip_smoke.py [--n 1000000]
-        [--only kernels|sharded|sharded-trace|sharded6m|build|delete|rollback]
+        [--only kernels|router|sharded|sharded-trace|sharded6m|build|delete|rollback]
 
 Phases, each printing one line:
 
@@ -242,7 +242,10 @@ On a host with several cards, phases 3 and 4's bitwise kernel checks run
 on every card.  Every timed span drains every card on both ends.
 
 `--only kernels` runs phases 1-3, the kernel checks on every card and
-phase 8's kernel times alone; `--only build` the main path's data and
+phase 8's kernel times alone; `--only router` phases 1-3, K4's times and,
+on the benchmark's sift1m-vamana-r64 index (`annbench/`, one seed), each
+query of its 65,536-query pool's entry points by K4 against the router's
+path before K4 and against K4's plain version; `--only build` the main path's data and
 packed build alone (its wall, `max_memory_allocated` and journal bytes;
 run from another checkout's root to measure that tree's build); `--only
 delete` that build re-attached at dp=128 and (d)'s 5% delete on fresh
@@ -261,6 +264,16 @@ full search at L = 16, 24, 40, 100 against `FlatIndex`'s exact top-10, a
 delete of 50,000 ids and a search after it; fails below recall@10 0.95
 on the packed walk, on a deleted id, or on a card whose peak reaches its
 memory.  Each prints a summary line and no result line.
+
+K4 `router_topk` launches once per bf16 router call: the main path fails
+unless its K4 launches equal the bf16 calls of `_router_topk_packed_pre`.
+K4 is checked at phase 3 against its plain version (B=8192 and B=1 over
+65,536 router rows at dp=128, n_start=4; 37 x 1,000 at dp=64, n_start=8;
+8192 x 65,536 at dp=512, n_start=32; random and crafted-tie tables, both
+distance forms): ids equal but where a dot's bf16 rounding at the
+boundary explains the difference, and none on the tie tables; phase 8
+times it at B=8192 and B=1 beside its bound, its plain version and the
+path before it.
 
 K3 launches once per K1 launch of a packed list walk (the main path's
 searches, the stream's checkpoints) and never in builds, inserts, deletes
@@ -291,6 +304,9 @@ K2_SOURCE = "diskann_tpu_torch/ops/kernels/csrc/block_patch.cu"
 # K3 replaces no Pallas kernel: the JAX package leaves the hop tail to XLA
 K3_REPLACES = None
 K3_SOURCE = "diskann_tpu_torch/ops/kernels/csrc/hop_merge.cu"
+# K4 replaces no Pallas kernel: the JAX package leaves the bf16 router to XLA
+K4_REPLACES = None
+K4_SOURCE = "diskann_tpu_torch/ops/kernels/csrc/router_topk.cu"
 D = 128
 NQ = 8192
 K = 10
@@ -351,6 +367,13 @@ K1_WIDE_SLOTS = 1 << 18
 # K3 at the packed list walk's shapes (rows, W, r_pack, dp, L): the main
 # path's search and the stream's checkpoints
 K3_SHAPES = ((NQ, 4, 84, 128, 24), (STREAM_NQ, 4, 88, 64, 90))
+# K4 at the bf16 router's shapes (queries, router rows, dp, n_start): the
+# batch call and one query; it is checked there and at a small and a wide
+# shape, on random and crafted-tie tables, in both distance forms
+K4_SHAPES = ((NQ, 65536, 128, 4), (1, 65536, 128, 4))
+K4_CHECKS = K4_SHAPES + ((37, 1000, 64, 8), (NQ, 65536, 512, 32))
+# `--only router`: the seed of the benchmark's sift1m-vamana-r64 data
+ROUTER_POOL_SEED = 3210000001
 # mode="auto": the flat route against the graph walk at a batch of
 # AUTO_BATCH queries (best of 3) and AUTO_SINGLES single-query calls;
 # the flat route's recall@10 bar; the bracket point below the 768-d shape
@@ -418,6 +441,7 @@ ROLLBACK_LATE_MIB = 64
 # int8 operations per millisecond
 HBM_BYTES_PER_MS = 3.35e12 / 1e3
 INT8_OPS_PER_MS = 1979e12 / 1e3
+BF16_FLOPS_PER_MS = 989e12 / 1e3
 
 
 def log(msg: str) -> None:
@@ -654,6 +678,188 @@ def k3_row(torch, b: int, w: int, rp: int, dp: int, l: int, device) -> dict:
     return {"ms": t["ms"], "plain_ms": p["ms"], "host_ms": t["host_ms"],
             "plain_host_ms": p["host_ms"], "bound_ms": bound, "bound_by": "bytes",
             "bound_bytes": moved, "share": bound / t["ms"], "fresh_per_row": fresh}
+
+
+def router_inputs(torch, device, b: int, s: int, dp: int, seed: int, ties: int = 1):
+    """K4's arguments for ``b`` queries over ``s`` router rows of width
+    ``dp``, made on ``device``: scaled queries and their squared norms,
+    int8 codes (``ties`` > 1: each code row repeated over that many
+    consecutive rows, exact ties), raux the codes' squared norms, distinct
+    router ids out of 1M.  Returns (qs, qsq, rc, raux, router_ids)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    qs = torch.randn((b, dp), generator=g, device=device) * 8
+    base = -(-s // ties)
+    rc = torch.randint(-127, 128, (base, dp), generator=g, device=device,
+                       dtype=torch.int8).repeat_interleave(ties, 0)[:s].contiguous()
+    ids = torch.randperm(1_000_000, generator=g, device=device)[:s].to(torch.int32)
+    return qs, (qs * qs).sum(1), rc, (rc.float() ** 2).sum(1), ids
+
+
+def parent_router(torch, qs, qsq, rc, raux, router_ids, n_start: int, ip: bool):
+    """The bf16 router as the port ran it before K4, and the library
+    yardstick: the bf16 product, the epilogue's passes over the [B, S]
+    block, then `smallest_ids` (torch.topk past 1,024 rows)."""
+    from diskann_tpu_torch.graph.scorers import smallest_ids
+
+    dots = qs.bfloat16() @ rc.bfloat16().T
+    d = -dots if ip else qsq[:, None].bfloat16() + raux[None, :].bfloat16() - 2.0 * dots
+    return smallest_ids(d, router_ids, n_start)
+
+
+def check_router_topk(torch, device) -> int:
+    """K4 vs plain at K4_CHECKS, random and crafted-tie tables, both
+    distance forms: ids equal for every query but those a rounding of a
+    dot at the boundary explains (`router_topk.rounding_disagreements`),
+    and none on the tie tables.  Returns the count of such queries, or
+    raises."""
+    from diskann_tpu_torch.ops.kernels import router_topk as k4
+
+    rounded = 0
+    for b, s, dp, n in K4_CHECKS:
+        for ties in (1, 8):
+            for ip in (False, True):
+                args = router_inputs(torch, device, b, s, dp, b + s + dp + n + ties + ip,
+                                     ties)
+                got = k4.router_topk(*args, n, inner_product=ip)
+                want = k4.router_topk_plain(*args, n, inner_product=ip)
+                ok, bad = k4.rounding_disagreements(got, want, *args, n, inner_product=ip)
+                torch.cuda.synchronize(device)
+                log(f"[k4] {device} router_topk B={b} S={s} dp={dp} n_start={n} "
+                    f"{'inner product' if ip else 'L2'}{' ties of 8' if ties > 1 else ''}: "
+                    f"{b - len(ok) - len(bad)} of {b} queries equal, {len(ok)} differ by a "
+                    f"dot's bf16 rounding at the boundary, {len(bad)} otherwise")
+                if bad or (ties > 1 and ok):
+                    raise RuntimeError(f"router_topk disagrees with its plain version at "
+                                       f"B={b} S={s} dp={dp} n_start={n}: rows {(ok + bad)[:5]}")
+                rounded += len(ok)
+    return rounded
+
+
+def k4_row(torch, b: int, s: int, dp: int, n: int, device) -> dict:
+    """Time K4, its plain version and the library yardstick (today's path
+    before K4, `parent_router`) on random inputs (`time_ms`), beside K4's
+    bound: the larger of its product's FLOP at the dense bf16 peak and its
+    bytes (codes, raux, queries and norms read once, the ids it returns
+    and maps) at 3.35 TB/s."""
+    from diskann_tpu_torch.ops.kernels import router_topk as k4
+
+    args = router_inputs(torch, device, b, s, dp, 21)
+    t = time_ms(torch, lambda: k4.router_topk(*args, n, inner_product=False))
+    p = time_ms(torch, lambda: k4.router_topk_plain(*args, n, inner_product=False), 3, 1)
+    lib = time_ms(torch, lambda: parent_router(torch, *args, n, False), 5, 2)
+    flop = 2 * b * s * dp
+    moved = s * dp + 4 * s + b * (4 * dp + 4) + 8 * b * n
+    by_flop, by_bytes = flop / BF16_FLOPS_PER_MS, moved / HBM_BYTES_PER_MS
+    bound = max(by_flop, by_bytes)
+    by = "FLOP" if by_flop >= by_bytes else "bytes"
+    pl = k4.plan(b, s, dp, n, n_sms=torch.cuda.get_device_properties(device).multi_processor_count)
+    log(f"[time] router_topk B={b} S={s} dp={dp} n_start={n}: kernel {t['ms']:.4f} ms "
+        f"({bound / t['ms']:.1%} of its bound), plain {p['ms']:.3f} ms, library (bf16 "
+        f"matmul + epilogue + torch.topk) {lib['ms']:.4f} ms, bound {bound:.4f} ms (by {by}: "
+        f"{flop / 1e9:.1f} GFLOP at 989 TFLOP/s {by_flop:.4f} ms, {moved / 1e6:.1f} MB at "
+        f"3.35 TB/s {by_bytes:.4f} ms); grid {pl.splits} x {pl.query_tiles}, "
+        f"{pl.smem_bytes} B of shared memory a block; {timing_note(t, 20)}")
+    return {"ms": t["ms"], "plain_ms": p["ms"], "library_ms": lib["ms"],
+            "host_ms": t["host_ms"], "library_host_ms": lib["host_ms"], "bound_ms": bound,
+            "bound_by": by, "flop": flop, "bound_bytes": moved, "share": bound / t["ms"]}
+
+
+@contextlib.contextmanager
+def bf16_router_calls():
+    """Counts the packed router's bf16 calls (`graph/index.py`
+    `_router_topk_packed_pre` with compute="bf16") inside the block: a
+    one-element list."""
+    from diskann_tpu_torch.graph import index as index_mod
+
+    inner = index_mod._router_topk_packed_pre
+    calls = [0]
+
+    def counted(*a, compute: str = "int8", **kw):
+        calls[0] += compute == "bf16"
+        return inner(*a, compute=compute, **kw)
+
+    index_mod._router_topk_packed_pre = counted
+    try:
+        yield calls
+    finally:
+        index_mod._router_topk_packed_pre = inner
+
+
+def router_pool(torch, device, seed: int = ROUTER_POOL_SEED) -> dict:
+    """The benchmark's sift1m-vamana-r64 index (built as
+    `annbench/system.Port` builds it, its data from ``seed``) and the whole
+    query pool of its closed-batch8192 traffic, in calls of NQ: each
+    query's entry points by K4 against the port's path before K4
+    (`parent_router`: the [B, S] block and torch.topk, which keeps no tie
+    order) and against K4's plain version; the differing sets split into
+    ties (the same multiset of distances) and the rest; K4 and the
+    yardstick timed on the index's router."""
+    from annbench import manifest
+    from annbench.reference.synth import Clustered
+    from annbench.system import Port
+    from diskann_tpu_torch.graph import index as index_mod
+    from diskann_tpu_torch.graph.scorers import quantize_queries
+    from diskann_tpu_torch.ops.distance import Metric
+    from diskann_tpu_torch.ops.kernels import router_topk as k4
+
+    bench = manifest.Bench()
+    cfg = bench.config("sift1m-vamana-r64")
+    pool_n = int(bench.traffic("closed-batch8192")["query_pool"])
+    data = Clustered(seed, cfg["data"], device)
+    t0 = time.time()
+    idx = Port(cfg, data.rows(0, int(cfg["data"]["n"]))).index
+    sync(torch, device)
+    build_s = time.time() - t0
+    pool = data.queries(pool_n)
+    rids = idx._router_ids_live("packed")
+    rows = idx._router_rows(True)
+    rc, raux, proj, pscale, pbias2 = rows
+    n_start = idx._n_start(rids, None)
+    ip = idx.metric == Metric.InnerProduct
+    out = {"build_s": build_s, "queries": pool_n, "router_rows": int(rids.shape[0]),
+           "n_start": n_start, "differ_parent": 0, "parent_ties": 0, "differ_plain": 0,
+           "rounding": 0, "unexplained": 0}
+    for off in range(0, pool_n, NQ):
+        q = pool[off:off + NQ]
+        got = index_mod._router_topk_packed_pre(*rows, rids, q, idx.metric, n_start,
+                                                compute="bf16")
+        _, _, qb, qs = quantize_queries(q, proj, pscale, pbias2, idx.metric)
+        qsq = (qb * qb).sum(-1)
+        parent = parent_router(torch, qs, qsq, rc, raux, rids, n_start, ip)
+        plain = k4.router_topk_plain(qs, qsq, rc, raux, rids, n_start, inner_product=ip)
+        ok, bad = k4.rounding_disagreements(got, plain, qs, qsq, rc, raux, rids, n_start,
+                                            inner_product=ip)
+        out["differ_plain"] += len(ok) + len(bad)
+        out["rounding"] += len(ok)
+        out["unexplained"] += len(bad)
+        differ = torch.nonzero((torch.sort(got, 1).values
+                                != torch.sort(parent, 1).values).any(1)).flatten()
+        out["differ_parent"] += int(differ.numel())
+        if differ.numel():
+            dots = qs[differ].bfloat16() @ rc.bfloat16().T
+            d = (-dots if ip else qsq[differ, None].bfloat16() + raux[None, :].bfloat16()
+                 - 2.0 * dots).float()
+            cg = torch.searchsorted(rids, got[differ].contiguous()).long()
+            cp = torch.searchsorted(rids, parent[differ].contiguous()).long()
+            tie = (torch.sort(d.gather(1, cg), 1).values
+                   == torch.sort(d.gather(1, cp), 1).values).all(1)
+            out["parent_ties"] += int(tie.sum())
+    t = time_ms(torch, lambda: k4.router_topk(qs, qsq, rc, raux, rids, n_start,
+                                              inner_product=ip))
+    lib = time_ms(torch, lambda: parent_router(torch, qs, qsq, rc, raux, rids, n_start, ip),
+                  5, 2)
+    out["k4_ms"], out["library_ms"] = t["ms"], lib["ms"]
+    log(f"[router] sift1m-vamana-r64 seed {seed}: build {build_s:.1f}s; {pool_n} queries "
+        f"over {out['router_rows']} router rows, n_start={n_start}: entry sets differ from "
+        f"the path before K4 (torch.topk) in {out['differ_parent']} queries, "
+        f"{out['parent_ties']} of them ties (the same distances); ids differ from K4's plain "
+        f"version in {out['differ_plain']}, {out['rounding']} by a dot's bf16 rounding at "
+        f"the boundary, {out['unexplained']} otherwise; on this router at B={NQ}: K4 "
+        f"{t['ms']:.4f} ms, the path before K4 {lib['ms']:.4f} ms ({timing_note(t, 20)})")
+    if out["unexplained"]:
+        raise RuntimeError(f"router_topk disagrees with its plain version on the pool: "
+                           f"{out['unexplained']} queries")
+    return out
 
 
 def check_small_input(torch, device) -> float:
@@ -1287,13 +1493,15 @@ def take_launches(k1, k2, phase: str | None = None) -> dict:
     """The kernels' launch counts since the last call (logged under
     ``phase`` when given); the counts restart at 0."""
     from diskann_tpu_torch.ops.kernels import hop_merge as k3
+    from diskann_tpu_torch.ops.kernels import router_topk as k4
 
     out = {"fatrow_expand": k1.launches, "block_patch": k2.launches,
-           "hop_merge": k3.launches}
-    k1.launches = k2.launches = k3.launches = 0
+           "hop_merge": k3.launches, "router_topk": k4.launches}
+    k1.launches = k2.launches = k3.launches = k4.launches = 0
     k1.launches_by_device.clear()
     k2.launches_by_device.clear()
     k3.launches_by_device.clear()
+    k4.launches_by_device.clear()
     if phase:
         log(f"[{phase}] kernel launches: {out}")
     return out
@@ -2774,6 +2982,8 @@ def time_kernels(torch, device, n: int) -> dict:
         torch.cuda.empty_cache()
     for b, w, rp, dp, l in K3_SHAPES:
         res[f"k3_rp{rp}_dp{dp}"] = k3_row(torch, b, w, rp, dp, l, device)
+    for b, s, dp, n in K4_SHAPES:
+        res[f"k4_b{b}"] = k4_row(torch, b, s, dp, n, device)
     host = {k: round(v["host_ms"], 4) for k, v in res.items()
             if isinstance(v, dict) and "host_ms" in v}
     log(f"[time] host ms per wrapper call (the enqueue alone, no sync): {json.dumps(host)}")
@@ -4706,11 +4916,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
                     help="database size of the main path (default 1,000,000)")
-    ap.add_argument("--only", choices=["kernels", "sharded", "sharded-trace", "sharded6m",
-                                       "build", "delete", "rollback"],
+    ap.add_argument("--only", choices=["kernels", "router", "sharded", "sharded-trace",
+                                       "sharded6m", "build", "delete", "rollback"],
                     help="after the build and the kernel checks, run only this phase "
                          "and print its summary; no result line (kernels: the kernel "
-                         "times of phase 8; sharded6m needs four cards; build: the "
+                         "times of phase 8; router: K4's times and the 1M pool's "
+                         "entry points; sharded6m needs four cards; build: the "
                          "main path's packed build alone; delete: that build's 5% "
                          "delete alone; rollback: the main path, then [rollback])")
     args = ap.parse_args(argv)
@@ -4724,6 +4935,7 @@ def main(argv=None) -> int:
     from diskann_tpu_torch.ops.kernels import fatrow_expand as k1
     from diskann_tpu_torch.ops.kernels import hop_merge as k3
     from diskann_tpu_torch.ops.kernels import native
+    from diskann_tpu_torch.ops.kernels import router_topk as k4
 
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4750,6 +4962,7 @@ def main(argv=None) -> int:
     k1_err, k1_dps = check_fatrow_expand(torch, device)
     k2_err = check_block_patch(torch, device)
     k3_err = check_hop_merge(torch, device)
+    k4_rounded = check_router_topk(torch, device)
     cards = torch.cuda.device_count()
     log(f"[device] {cards} card(s): "
         f"{[torch.cuda.get_device_name(c) for c in range(cards)]}")
@@ -4757,11 +4970,17 @@ def main(argv=None) -> int:
         check_fatrow_expand(torch, torch.device("cuda", c))
         check_block_patch(torch, torch.device("cuda", c))
         check_hop_merge(torch, torch.device("cuda", c))
+        check_router_topk(torch, torch.device("cuda", c))
         torch.cuda.empty_cache()
     if args.only == "kernels":
         times = time_kernels(torch, device, args.n)
         log("[summary] " + json.dumps({k: v for k, v in times.items() if k != "k1_dps"}
-                                      | {"k3_err": k3_err}))
+                                      | {"k3_err": k3_err, "k4_rounded": k4_rounded}))
+        return 0
+    if args.only == "router":
+        rows = {f"k4_b{b}": k4_row(torch, b, s, dp, n, device) for b, s, dp, n in K4_SHAPES}
+        log("[summary] " + json.dumps(rows | {"k4_rounded": k4_rounded,
+                                              "pool": router_pool(torch, device)}))
         return 0
     if args.only == "sharded":
         return only_sharded(torch, device, args.n, k1, k2)
@@ -4785,10 +5004,12 @@ def main(argv=None) -> int:
     k1.launches = 0
     k2.launches = 0
     k3.launches = 0
+    k4.launches = 0
     k1.launches_by_dp.clear()
-    main_out, idx, qd, gt = run_main_path(args.n, device)
+    with bf16_router_calls() as router_calls:
+        main_out, idx, qd, gt = run_main_path(args.n, device)
     launches = {"fatrow_expand": k1.launches, "block_patch": k2.launches,
-                "hop_merge": k3.launches}
+                "hop_merge": k3.launches, "router_topk": k4.launches}
     k1_main_by_dp = dict(k1.launches_by_dp)
     peak = torch.cuda.max_memory_allocated(device)
     log(f"[main] kernel launches on the main path: {launches}, K1 by dp "
@@ -4800,6 +5021,10 @@ def main(argv=None) -> int:
     if launches["hop_merge"] != k1_main_by_dp.get(128, 0):
         raise RuntimeError(f"K3 launched {launches['hop_merge']} times on the main path, "
                            f"its packed searches' K1 {k1_main_by_dp.get(128, 0)}")
+    # every bf16 router call of the main path's searches is one K4 launch
+    if launches["router_topk"] != router_calls[0]:
+        raise RuntimeError(f"K4 launched {launches['router_topk']} times on the main path, "
+                           f"its bf16 router calls {router_calls[0]}")
     lap("main")
 
     # [rollback]: inserts and sharded calls that fail commit nothing
@@ -4988,6 +5213,14 @@ def main(argv=None) -> int:
                 for key in ("ms", "plain_ms", "bound_ms", "host_ms")},
              "library_ms": None,
              "shape": "B=8192 W=4 rp=84 dp=128 L=24; B=2048 W=4 rp=88 dp=64 L=90"},
+            {"name": "router_topk", "route": "cuda", "source": K4_SOURCE,
+             "replaces": K4_REPLACES, "launches": launches["router_topk"],
+             "bf16_router_calls": router_calls[0],
+             **{f"{p}_launches": phase_launches[p].get("router_topk") for p in phase_launches},
+             "rounded_queries": k4_rounded,
+             **{f"{key}_b{b}": times[f"k4_b{b}"][key] for b, _, _, _ in K4_SHAPES
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms", "host_ms")},
+             "shape": "B=8192 S=65536 dp=128 n_start=4; B=1 S=65536 dp=128 n_start=4"},
         ]
         summary = {k: main_out[k] for k in ("n", "build_s", "build_points_per_s", "attach_s",
                                             "build_peak_bytes", "journal_bytes")}

@@ -58,6 +58,7 @@ from diskann_tpu_torch.graph.search import (
 )
 from diskann_tpu_torch.io_.record import load_record, save_record
 from diskann_tpu_torch.ops.distance import Metric, distance_to_set, squared_norms
+from diskann_tpu_torch.ops.kernels.router_topk import router_topk
 from diskann_tpu_torch.ops.topk import sort_with
 from diskann_tpu_torch.quant.minmax import MinMaxQuantizer
 from diskann_tpu_torch.quant.pq import PQ, train_pq
@@ -187,20 +188,18 @@ def _router_topk_packed_pre(rc, raux, proj, pscale, pbias2, router_ids,
 
     compute="int8": the query quantized to int8, an exact integer product
     (`packed_router_starts`).  compute="bf16": the scaled query against
-    bf16-cast codes in bf16; entry points only need to be near-nearest."""
+    bf16-cast codes in bf16, product, epilogue and top-n_start in one
+    kernel (`ops/kernels/router_topk`, K4; on the card at most
+    MAX_N_START entry points); entry points only need to be near-nearest."""
     if compute == "int8":
         return packed_router_starts(rc, raux, router_ids, proj, pscale, pbias2,
                                     queries, metric, n_start)
     if compute != "bf16":
         raise ValueError(f"unknown router compute {compute!r}")
     _, _, qb, qs = quantize_queries(queries, proj, pscale, pbias2, metric)
-    dots = qs.bfloat16() @ rc.bfloat16().T
-    if metric == Metric.InnerProduct:
-        d = -dots
-    else:
-        qsq = (qb * qb).sum(-1, keepdim=True)
-        d = qsq.bfloat16() + raux[None, :].bfloat16() - 2.0 * dots
-    return smallest_ids(d, router_ids, n_start)
+    ip = metric == Metric.InnerProduct
+    return router_topk(qs, None if ip else (qb * qb).sum(-1), rc, raux, router_ids,
+                       n_start, inner_product=ip)
 
 
 def _encode_i8pack(q: np.ndarray) -> np.ndarray:
@@ -797,7 +796,10 @@ class GraphIndex:
         full route casts to int64 or int8 there instead, which truncates
         the queries).
         router_starts: per-query router entry points (None = config
-        default).
+        default); on a CUDA card the packed walk's bf16 router
+        (`router_compute="bf16"`) takes at most
+        `ops.kernels.router_topk.MAX_N_START` (32) and raises ValueError
+        beyond.
 
         Traced as a ``search`` span (attributes ``mode`` and ``queries``)
         holding each query batch's ``search.router``, ``search.walk`` and

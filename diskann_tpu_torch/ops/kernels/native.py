@@ -49,6 +49,9 @@ _SIGNATURES = {
     # cmps, hops, flag_set, flag_clear, rows, w, rp, l, ids stride, dots
     # stride, inner product, threads, hash bits, shared bytes, stream
     "hop_merge_launch": (_P,) * 14 + (_L, _I, _I, _I, _L, _L, _I, _I, _I, _I, _P),
+    # qs, qsq, rc, raux, ids, cand, out, queries, router rows, dp, n_out,
+    # inner product, list size, splits, shared bytes, stream
+    "router_topk_launch": (_P,) * 7 + (_L,) + (_I,) * 7 + (_P,),
 }
 
 _lock = threading.Lock()
