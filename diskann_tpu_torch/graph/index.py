@@ -91,7 +91,7 @@ _MODES = ("full", "packed", "pq", "sq", "minmax", "spherical")
 
 # mode="auto" flat-vs-graph crossover, in live_n * dim elements: at or below
 # it the exact masked flat scan answers, above it the graph walk.  Measured
-# by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W, 8192 queries,
+# on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md, Findings), 8192 queries,
 # k=10: at 100k x 768 (76.8M, inner product) the flat scan ran at 365,475
 # QPS (recall 1.0) against the packed walk's 71,909; at 1M x 128 (128M, L2)
 # the walk ran at 337,661 against the flat scan's 32,625.  The value sits

@@ -14,19 +14,9 @@ garbage by design.
 
 from __future__ import annotations
 
-import threading
-
 import torch
 
 from diskann_tpu_torch.ops.kernels import native
-
-#: Kernel launches so far in this process (the wrapper adds one per launch),
-#: in all and per CUDA device index; the counts move under a lock, since a
-#: server's threads may launch at once.
-launches = 0
-launches_by_device: dict[int, int] = {}
-_count_lock = threading.Lock()
-
 
 def block_patch_plain(table, block_idx, vals):
     """Plain PyTorch version: a row `index_copy_` of the valid blocks."""
@@ -42,7 +32,6 @@ def block_patch_plain(table, block_idx, vals):
 def block_patch(table, block_idx, vals):
     """table [R, 128] (R % 8 == 0), patched in place and returned;
     block_idx [G] int32; vals [G*8, 128] of the table's dtype."""
-    global launches
     if table.device.type == "cpu":
         return block_patch_plain(table, block_idx, vals)
     if table.device.type != "cuda":
@@ -71,8 +60,5 @@ def block_patch(table, block_idx, vals):
             torch.cuda.current_stream(table.device).cuda_stream,
         )
     native.check(err, "block_patch")
-    with _count_lock:
-        launches += 1
-        dev = table.device.index
-        launches_by_device[dev] = launches_by_device.get(dev, 0) + 1
+    native.count("block_patch")
     return table

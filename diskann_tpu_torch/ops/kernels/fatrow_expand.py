@@ -16,20 +16,11 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import threading
 
 import torch
 
 from diskann_tpu_torch.graph.packed import code_wrows, id_wrows, n_wrows
 from diskann_tpu_torch.ops.kernels import native
-
-#: Kernel launches so far in this process (the wrapper adds one per launch),
-#: in all, per CUDA device index and per dp; the counts move under a lock,
-#: since a server's threads may launch at once.
-launches = 0
-launches_by_device: dict[int, int] = {}
-launches_by_dp: dict[int, int] = {}
-_count_lock = threading.Lock()
 
 #: The most shared memory one block may take on sm_90 (227 KB).
 SMEM_PER_BLOCK = 232_448
@@ -133,7 +124,6 @@ def fatrow_expand(rows, beam_flat, qiw, *, rp: int, dp: int):
 
     Returns (ids [BW, idw*128] int32, aux_w [BW, idw*128] int32 holding
     float32 bits, dots [BW, codr*cpr] int32 in neighbour-slot order)."""
-    global launches
     if rows.device.type == "cpu":
         return fatrow_expand_plain(rows, beam_flat, qiw, rp=rp, dp=dp)
     if rows.device.type != "cuda":
@@ -175,8 +165,5 @@ def fatrow_expand(rows, beam_flat, qiw, *, rp: int, dp: int):
             torch.cuda.current_stream(dev).cuda_stream,
         )
     native.check(err, "fatrow_expand")
-    with _count_lock:
-        launches += 1
-        launches_by_device[dev.index] = launches_by_device.get(dev.index, 0) + 1
-        launches_by_dp[dp] = launches_by_dp.get(dp, 0) + 1
+    native.count("fatrow_expand")
     return ids, aux_w, dots

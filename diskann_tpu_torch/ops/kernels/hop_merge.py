@@ -30,7 +30,6 @@ source's note.
 from __future__ import annotations
 
 import dataclasses
-import threading
 
 import torch
 
@@ -40,13 +39,6 @@ from diskann_tpu_torch.ops.kernels.fatrow_expand import SMEM_PER_BLOCK
 from diskann_tpu_torch.ops.topk import (
     SENTINEL, isin_rows, mask_duplicates_sorted, sort_with,
 )
-
-#: Kernel launches so far in this process (the wrapper adds one per launch),
-#: in all and per CUDA device index; the counts move under a lock, since a
-#: server's threads may launch at once.
-launches = 0
-launches_by_device: dict[int, int] = {}
-_count_lock = threading.Lock()
 
 #: Threads a block at most (a quarter of the candidates' power of two).
 MAX_THREADS = 512
@@ -178,7 +170,6 @@ def hop_merge(ids_w, aux_w, dots, qscale, qsq, st: HopState, hop: int, *,
     aux_w [B*W, >= rp] int32 and dots [B*W, >= rp] int32 are K1's outputs
     for ``st.beam``; qscale, qsq [B] float32 each query's scale and squared
     norm (`graph/scorers.quantize_queries`); ``hop`` numbers the hop."""
-    global launches
     if st.best_d.device.type == "cpu":
         return hop_merge_plain(ids_w, aux_w, dots, qscale, qsq, st, hop, rp=rp,
                                inner_product=inner_product)
@@ -230,7 +221,5 @@ def hop_merge(ids_w, aux_w, dots, qscale, qsq, st: HopState, hop: int, *,
             threads, hbits, smem, torch.cuda.current_stream(dev).cuda_stream,
         )
     native.check(err, "hop_merge")
+    native.count("hop_merge")
     st.beam = beam_out
-    with _count_lock:
-        launches += 1
-        launches_by_device[dev.index] = launches_by_device.get(dev.index, 0) + 1

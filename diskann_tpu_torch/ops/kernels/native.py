@@ -9,6 +9,8 @@ a rebuilt source never loads a stale library.  A failed compile raises with
 the compiler's stderr; a good one leaves ptxas's report (registers, shared
 memory and spills of every kernel) beside the library, read by
 `ptxas_report`.
+
+`launches` counts each kernel's launches in this process, by name.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from collections import Counter
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -56,6 +59,12 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+
+#: Kernel launches so far in this process, by kernel name (each wrapper
+#: adds one per launch that `check` passed); they move under a lock, since
+#: a server's threads may launch at once.
+launches: Counter = Counter()
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -145,3 +154,15 @@ def check(err: int, name: str) -> None:
     if err != 0:
         msg = library().diskann_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA launch failed: error {err} ({msg})")
+
+
+def count(name: str) -> None:
+    """Count one launch of kernel ``name``."""
+    with _count_lock:
+        launches[name] += 1
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count back to 0."""
+    with _count_lock:
+        launches.clear()

@@ -29,20 +29,11 @@ it describes.
 from __future__ import annotations
 
 import dataclasses
-import threading
 
 import torch
 
 from diskann_tpu_torch.ops.kernels import native
 from diskann_tpu_torch.ops.kernels.fatrow_expand import H100_SMS, SMEM_PER_BLOCK, sm_count
-
-#: Kernel launches so far in this process (the wrapper adds one per call:
-#: the product and selection, then the merge of the splits' lists), in all
-#: and per CUDA device index; the counts move under a lock, since a
-#: server's threads may launch at once.
-launches = 0
-launches_by_device: dict[int, int] = {}
-_count_lock = threading.Lock()
 
 #: The most entry points a query the kernel selects (its longest list).
 MAX_N_START = 32
@@ -136,7 +127,6 @@ def router_topk(qs, qsq, rc, raux, router_ids, n_start: int, *, inner_product: b
     and for CUDA tensors beyond the kernel's limits (`check_limits`:
     n_start at most MAX_N_START); the plain version on the CPU has no
     other limit."""
-    global launches
     b, dp = (qs.shape if qs.dim() == 2 else (-1, -1))
     s = rc.shape[0] if rc.dim() == 2 else -1
     if qs.dim() != 2 or rc.dim() != 2 or rc.shape[1] != dp:
@@ -194,9 +184,9 @@ def router_topk(qs, qsq, rc, raux, router_ids, n_start: int, *, inner_product: b
             torch.cuda.current_stream(dev).cuda_stream,
         )
     native.check(err, "router_topk")
-    with _count_lock:
-        launches += 1
-        launches_by_device[index] = launches_by_device.get(index, 0) + 1
+    # one count a call: the product and selection, then the merge of the
+    # splits' lists
+    native.count("router_topk")
     return out
 
 

@@ -16,9 +16,9 @@ back and forth.
   any reply, so the workers run at once; a worker runs its work to the
   end with no round trip per step.  Only the command and its result cross
   the pipe: arguments as numpy arrays, results as numpy arrays (through
-  the pipe from the host) or, for CUDA tensors when `Mesh._transport` is
-  "ipc" or the caller asks for views, as CUDA IPC handles that the caller
-  opens and copies from (the peer copy).  Each worker waits for its cards
+  the pipe from the host) or, for a search's CUDA lists and for views the
+  caller asks for, as CUDA IPC handles that the caller opens and copies
+  from (the peer copy).  Each worker waits for its cards
   before it replies, so a reply means the work is done.
 - Errors: a worker replies with its exception, which the caller raises
   with its type kept and the worker's traceback in the message.  A worker
@@ -121,14 +121,13 @@ def _worker(conn, device: torch.device, threads: int, tf32: tuple) -> None:
         if device.type == "cuda":
             torch.cuda.set_device(device)
             torch.ones(1, device=device).sum().item()     # reach the card now
-        from diskann_tpu_torch.ops.kernels import block_patch, fatrow_expand
+        from diskann_tpu_torch.ops.kernels import native
         from diskann_tpu_torch.parallel.sharded import _Shards
     except BaseException as exc:                          # noqa: BLE001
         conn.send(("err", *_picklable(exc, traceback.format_exc())))
         return
     conn.send(("ok", os.getpid()))
     groups: dict[int, _Shards] = {}
-    kernels = {"fatrow_expand": fatrow_expand, "block_patch": block_patch}
     while True:
         try:
             msg = conn.recv()
@@ -158,11 +157,10 @@ def _worker(conn, device: torch.device, threads: int, tf32: tuple) -> None:
                 out = fn(*(() if gid is None else (groups[gid],)), *_from_wire(args))
                 ipc = False
             elif cmd == "launches":
-                out = {name: mod.launches for name, mod in kernels.items()}
+                out = {name: native.launches[name]
+                       for name in ("fatrow_expand", "block_patch")}
                 if msg[1]:
-                    for mod in kernels.values():
-                        mod.launches = 0
-                        mod.launches_by_device.clear()
+                    native.reset_launches()
                 ipc = False
             else:
                 raise ValueError(f"unknown mesh command {cmd!r}")
@@ -230,11 +228,6 @@ class Mesh:
             from diskann_tpu_torch.ops.kernels import native
 
             native.build()
-        # how a search's per-shard CUDA lists reach the caller: "ipc" (CUDA
-        # IPC, then a peer copy onto the first card) or "host" (copied to the
-        # host in the worker, pickled through the pipe, uploaded); IPC was
-        # the faster on four H100s, `chip_smoke.py` times both
-        self._transport = "ipc"
         self._broken: str | None = None
         self._pending = [0] * len(self.devices)   # replies owed, per worker
         self._dropped: list[int] = []
@@ -440,7 +433,7 @@ class MeshShards:
         if isinstance(queries, torch.Tensor):
             queries = queries.cpu().numpy()
         lists = self._by_shard(self._call("walk", None, np.asarray(queries, np.float32), mode,
-                                          k, l, filt, ipc=self.mesh._transport == "ipc"))
+                                          k, l, filt, ipc=True))
         return [tuple(t.to(dest) for t in part) for part in lists]
 
     def host_arrays(self) -> list:

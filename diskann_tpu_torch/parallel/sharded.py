@@ -51,8 +51,8 @@
   `insert_batch`'s boolean-mask writes and its overflow `torch.nonzero`.
 - Search runs each shard's walk on its device, maps its ids to external
   ids there, and brings the per-shard lists to the first device (the
-  counterpart of `all_gather`; from a worker by CUDA IPC and a peer copy,
-  or through the pipe from the host: `mesh.Mesh._transport`), where one
+  counterpart of `all_gather`; from a worker by CUDA IPC and a peer
+  copy), where one
   lexicographic (distance, id) sort over the lists in shard order puts
   overlap copies side by side (`_merge_topk_dedup`).  Deletes send the
   dead ids to every shard; each finds its copies by a membership test of

@@ -12,6 +12,9 @@
   not compared).
 - The CLI's ``list`` and ``check`` through both packages' ``main``: the
   same output and exit status.
+- The port's own kernel ops (K1-K4): each bound at its default shape is
+  PERF.md's kernel table's, and each op runs at a tiny shape on the CPU
+  (the plain versions).
 """
 
 import json
@@ -19,11 +22,13 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from diskann_tpu.bench.__main__ import main as jmain
 from diskann_tpu.bench.harness import default_registry as jregistry
 from diskann_tpu_torch import GraphConfig, GraphIndex
 from diskann_tpu_torch.bench.__main__ import main as tmain
+from diskann_tpu_torch.bench import kernels
 from diskann_tpu_torch.bench.abgate import (
     Side, calibrate_clean_s, decide, interleaved_search_gate, render_artifact,
 )
@@ -247,6 +252,40 @@ def test_kernel_ops_match_jax(job):
     got = default_registry().run_job({"benchmark": "kernels", "device": "cpu", **job})
     _agree(got["result"], want["result"])
     assert all(v > 0 for v in got["result"].values())
+
+
+# the kernel ops' bounds at their default shapes, in ms: PERF.md's kernel
+# table; and tiny shapes to run them at on the CPU (the plain versions)
+KERNEL_BOUNDS = {"fatrow_expand": (0.128, "bytes"), "block_patch": (0.040, "bytes"),
+                 "hop_merge": (0.0114, "bytes"), "router_topk": (0.139, "FLOP")}
+TINY_KERNEL_SHAPES = {"fatrow_expand": {"rp": 16, "dp": 16, "n_rows": 256, "slots": 64},
+                      "block_patch": {"rp": 16, "dp": 16, "n_rows": 256, "blocks": 32},
+                      "hop_merge": {"b": 8, "w": 2, "rp": 16, "dp": 16, "l": 8},
+                      "router_topk": {"b": 8, "s": 256, "dp": 16, "n_start": 4}}
+
+
+@pytest.mark.parametrize("op", list(KERNEL_BOUNDS))
+def test_kernel_op_bound_and_cpu_run(op):
+    s = kernels.KERNEL_SHAPES[op]
+    if op == "fatrow_expand":
+        # the bound counts distinct beam nodes: ~0.1% apart between seeds
+        beam = torch.randint(0, s["n_rows"], (s["slots"],),
+                             generator=torch.Generator().manual_seed(0))
+        bound = kernels.fatrow_expand_bound(beam, s["rp"], s["dp"], s["n_rows"] + 1)
+    elif op == "block_patch":
+        bound = kernels.block_patch_bound(s["blocks"])
+    elif op == "hop_merge":
+        bound = kernels.hop_merge_bound(s["b"], s["w"], s["rp"], s["l"])
+    else:
+        bound = kernels.router_topk_bound(s["b"], s["s"], s["dp"], s["n_start"])
+    want_ms, want_by = KERNEL_BOUNDS[op]
+    assert bound[0] == pytest.approx(want_ms, rel=0.02) and bound[1] == want_by
+    got = default_registry().run_job({"benchmark": "kernels", "op": op, "device": "cpu",
+                                      "iters": 2, **TINY_KERNEL_SHAPES[op]})["result"]
+    assert got["device"] == "cpu" and got["covered"] is None
+    for key in ("kernel_ms", "plain_ms", "bound_ms", "share", "host_ms"):
+        assert got[key] > 0, key
+    assert got["share"] == pytest.approx(got["bound_ms"] / got["kernel_ms"])
 
 
 # --------------------------------------------------------------- the CLI

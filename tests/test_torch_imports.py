@@ -1,10 +1,10 @@
 """The port never imports JAX or the JAX package.
 
-An AST scan of every Python file of `diskann_tpu_torch/` and of
-`chip_smoke.py`: no `import jax...`, `from jax... import`, `import
-diskann_tpu...` or `from diskann_tpu... import` (the port's own
-`diskann_tpu_torch` is fine).  Importing any `diskann_tpu` module runs
-`diskann_tpu/__init__.py`, which imports jax.
+An AST scan of every Python file of `diskann_tpu_torch/`: no `import
+jax...`, `from jax... import`, `import diskann_tpu...` or `from
+diskann_tpu... import` (the port's own `diskann_tpu_torch` is fine).
+Importing any `diskann_tpu` module runs `diskann_tpu/__init__.py`, which
+imports jax.
 """
 
 import ast
@@ -15,7 +15,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted(
     str(p.relative_to(ROOT)) for p in (ROOT / "diskann_tpu_torch").rglob("*.py")
-) + ["chip_smoke.py"]
+)
 FORBIDDEN = ("jax", "jaxlib", "diskann_tpu")
 
 

@@ -6,13 +6,17 @@ bitwise equal to the JAX Pallas kernels (run as `tests/test_kernels.py`
 runs them: `interpret=True`) and to their `*_ref` oracles; K3 replaces no
 Pallas kernel, and its plain version is the walk's own code (held against
 the JAX walk in `tests/test_torch_search.py`).  Each CUDA kernel against
-its plain version is checked on a CUDA card only (marker `cuda`).
+its plain version is checked on a CUDA card only (marker `cuda`); K1 and
+K2 also on the main path's full-size tables of 1M nodes, whose word
+offsets pass 2^31.
 A CUDA host need not have JAX (the port does not use it), so the JAX
 package is imported inside the CPU tests only, and the `cuda` cases run
 without `tests/conftest.py` (which imports JAX):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels.py
 """
+
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -22,7 +26,8 @@ from diskann_tpu_torch.graph.packed import n_wrows
 from diskann_tpu_torch.ops.kernels import block_patch as k2
 from diskann_tpu_torch.ops.kernels import fatrow_expand as k1
 from diskann_tpu_torch.ops.kernels import hop_merge as k3
-from torch_port_helpers import cuda_device, n, rand_word_rows, t  # noqa: F401
+from diskann_tpu_torch.ops.kernels import native
+from torch_port_helpers import cuda_device, launches, n, rand_word_rows, t  # noqa: F401
 
 PATCH_BLOCK = 4096  # the JAX block_patch takes patch counts in multiples of this
 
@@ -123,15 +128,13 @@ def test_block_patch_plain_skips_blocks_outside_the_table():
 
 
 def test_cpu_calls_leave_launch_counters_at_zero(monkeypatch):
-    monkeypatch.setattr(k1, "launches", 0)
-    monkeypatch.setattr(k2, "launches", 0)
-    monkeypatch.setattr(k3, "launches", 0)
+    monkeypatch.setattr(native, "launches", Counter())
     rows, beam, qiw = _expand_inputs(3, 32, 16, 16, 64)
     k1.fatrow_expand(t(rows), t(beam), t(qiw), rp=16, dp=64)
     k2.block_patch(t(rows[:64]), t(np.array([0, 3], np.int32)), t(rows[:16]))
     (*args, hop), st = _hop_inputs(3, 16, 8, 10, 1, "random", "cpu")
     k3.hop_merge(*args, st, hop, rp=16, inner_product=False)
-    assert (k1.launches, k2.launches, k3.launches) == (0, 0, 0)
+    assert not native.launches
 
 
 def test_wrappers_reject_other_devices():
@@ -272,9 +275,9 @@ def test_hop_merge_geometry_fits_the_walks(rp, dp, l, w):
 @pytest.mark.parametrize("rp,dp,l,w", K3_GEOMETRIES)
 def test_hop_merge_kernel_matches_plain(cuda_device, rp, dp, l, w, case):
     args, st = _hop_inputs(rp + l + w, rp, dp, l, w, case, cuda_device)
-    before = k3.launches
+    before = launches("hop_merge")
     got = _run_k3(k3.hop_merge, args, st, rp, case)
-    assert k3.launches == before + 1
+    assert launches("hop_merge") == before + 1
     want = _run_k3(k3.hop_merge_plain, args, st, rp, case)
     torch.cuda.synchronize(cuda_device)
     _same_state(got, want)
@@ -301,25 +304,54 @@ def test_hop_merge_raises_on_inputs_it_does_not_take(cuda_device, fault):
         rp = 4096
         ids = ids.repeat(1, 32)
         aux, dots = aux.repeat(1, 32), dots.repeat(1, 64)
-    before = k3.launches
+    before = launches("hop_merge")
     with pytest.raises(ValueError, match="hop_merge"):
         k3.hop_merge(ids, aux, dots, qscale, qsq, st, hop, rp=rp, inner_product=False)
-    assert k3.launches == before
+    assert launches("hop_merge") == before
+
+
+def _card_words(shape, dtype, gen):
+    """A random tensor of ``dtype`` drawn on ``gen``'s card as random bytes
+    (a full-size table would not fit a draw on the host)."""
+    n_bytes = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+    return torch.randint(-128, 128, (n_bytes,), generator=gen, device=gen.device,
+                         dtype=torch.int8).view(dtype).view(shape)
+
+
+def _past_int32(ids, row_words: int) -> int:
+    """How many of the valid block or node ``ids`` start at a word offset
+    that an int32 cannot hold."""
+    return int((ids.long() * row_words >= 2**31).sum())
+
+
+# the main path's tables at full size (1M nodes), searched by its beam of
+# 8192 x 4 slots: the search table (rp=84, dp=128: 3.07e9 words, so slots
+# past word offset 2^31) and the build table (rp=88, dp=64: 2.05e9 words)
+FULL_NODES = 1_000_000
+FULL_GEOMETRIES = [(84, 128, FULL_NODES, 8192 * 4), (88, 64, FULL_NODES, 8192 * 4)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rp,dp,nodes,bw", GEOMETRIES + [(84, 128, 4096, 1000)])
+@pytest.mark.parametrize("rp,dp,nodes,bw",
+                         GEOMETRIES + [(84, 128, 4096, 1000)] + FULL_GEOMETRIES)
 def test_fatrow_expand_kernel_matches_plain(cuda_device, rp, dp, nodes, bw):
-    rows, beam, qiw = _expand_inputs(5, nodes, bw, rp, dp)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    rows = _card_words((nodes * n_wrows(rp, dp), 128), torch.int32, gen)
+    beam = torch.randint(0, nodes, (bw,), generator=gen, device=cuda_device, dtype=torch.int32)
+    qiw = _card_words((bw, dp), torch.int8, gen)
     beam[::11] = -1
     beam[1::13] = nodes + 3
-    args = [t(a).to(cuda_device) for a in (rows, beam, qiw)]
-    before = k1.launches
-    got = k1.fatrow_expand(*args, rp=rp, dp=dp)
-    assert k1.launches == before + 1
-    want = k1.fatrow_expand_plain(*args, rp=rp, dp=dp)
+    if rows.numel() > 2**31:
+        valid = beam[(beam >= 0) & (beam < nodes)]
+        assert _past_int32(valid, n_wrows(rp, dp) * 128) > 0
+    before = launches("fatrow_expand")
+    got = k1.fatrow_expand(rows, beam, qiw, rp=rp, dp=dp)
+    assert launches("fatrow_expand") == before + 1
+    want = k1.fatrow_expand_plain(rows, beam, qiw, rp=rp, dp=dp)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    del rows, got, want
+    torch.cuda.empty_cache()
 
 
 # every dp the reference takes (dp/4 divides 128)
@@ -399,9 +431,9 @@ def test_fatrow_expand_kernel_edges_match_plain(cuda_device, rp, dp, case):
         beam[2::5] = nodes
         beam[3::5] = -1
     args = [t(a).to(cuda_device) for a in (rows, beam, qiw)]
-    before = k1.launches
+    before = launches("fatrow_expand")
     got = k1.fatrow_expand(*args, rp=rp, dp=dp)
-    assert k1.launches == before + 1
+    assert launches("fatrow_expand") == before + 1
     want = k1.fatrow_expand_plain(*args, rp=rp, dp=dp)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -420,21 +452,36 @@ def test_fatrow_expand_raises_on_a_refused_plan(cuda_device, monkeypatch, field,
     plan = k1.plan
     monkeypatch.setattr(k1, "plan", lambda *a, **kw: dataclasses.replace(
         plan(*a, **kw), **{field: value}))
-    before = k1.launches
+    before = launches("fatrow_expand")
     with pytest.raises(RuntimeError, match="fatrow_expand"):
         k1.fatrow_expand(*[t(x).to(cuda_device) for x in (rows, beam, qiw)], rp=84, dp=128)
-    assert k1.launches == before
+    assert launches("fatrow_expand") == before
+
+
+# blocks of the full-size search table (rp=84, dp=128, 1M nodes)
+FULL_BLOCKS = FULL_NODES * n_wrows(84, 128) // 8
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
-def test_block_patch_kernel_matches_plain(cuda_device, dtype):
-    gen = torch.Generator().manual_seed(3)
-    table = torch.randint(-100, 100, (8 * 512, 128), generator=gen).to(dtype)
-    idx = torch.randperm(511, generator=gen)[:300].to(torch.int32)
-    idx[::4] = 511                                   # the dump block
-    vals = torch.randint(-100, 100, (300 * 8, 128), generator=gen).to(dtype)
-    a = [x.to(cuda_device) for x in (table, idx, vals)]
-    got = k2.block_patch(a[0].clone(), a[1], a[2])
-    want = k2.block_patch_plain(a[0].clone(), a[1], a[2])
-    assert torch.equal(got[: 511 * 8], want[: 511 * 8])
+@pytest.mark.parametrize("dtype,n_blocks,g", [(torch.int8, 512, 300), (torch.int32, 512, 300),
+                                              (torch.int32, FULL_BLOCKS, 3 * 8192)])
+def test_block_patch_kernel_matches_plain(cuda_device, dtype, n_blocks, g):
+    # the last block is the dump block, whose contents are garbage by design
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    dump = n_blocks - 1
+    table = _card_words((8 * n_blocks, 128), dtype, gen)
+    idx = torch.randperm(dump, generator=gen, device=cuda_device)[:g].to(torch.int32)
+    idx[::5] = dump                                  # a fifth on the dump block
+    idx[1::101] = n_blocks + 2                       # outside the table: skipped
+    vals = _card_words((g * 8, 128), dtype, gen)
+    if table.numel() > 2**31:
+        assert _past_int32(idx[idx < dump], 8 * 128) > 0
+    # the plain version on the host's copy: a second full table may not fit
+    # beside whatever else holds the card
+    want = k2.block_patch_plain(table.cpu(), idx.cpu(), vals.cpu())
+    got = k2.block_patch(table, idx, vals)
+    for lo in range(0, dump * 8, 1 << 22):
+        hi = min(lo + (1 << 22), dump * 8)
+        assert torch.equal(got[lo:hi].cpu(), want[lo:hi]), lo
+    del table, got, want
+    torch.cuda.empty_cache()

@@ -22,7 +22,8 @@ live in worker processes, one per device, spawned here on the CPU.
 
 On this host a device list names no CUDA card, so the tests that need
 several shards in a worker take two CPU devices ("cpu" and "cpu:0") as
-cards; `chip_smoke.py` runs the mesh on the cards themselves.
+cards; `tests/test_torch_mesh_cuda.py` (marker `cuda`) runs the mesh on a
+card.
 """
 
 import gc

@@ -7,9 +7,7 @@ on card 0 against the same index in this process.
   card, the record byte for byte;
 - each worker counts the kernels it launches: K2 in the attach, K1 in the
   packed walk;
-- `shard(s)` is a view of the worker's tensors on the card (CUDA IPC), and
-  the two transports of the search lists (CUDA IPC, host copy) give the
-  same results;
+- `shard(s)` is a view of the worker's tensors on the card (CUDA IPC);
 - a real out-of-memory error under a memory cap set inside the workers
   reaches the caller as `torch.OutOfMemoryError` and leaves every shard
   bitwise as before.
@@ -61,11 +59,8 @@ def test_workers_launch_the_kernels_and_share_views(cuda_device):
     idx.mesh.kernel_launches()
     idx.attach_packed(dp=32)
     assert all(n["block_patch"] > 0 for n in idx.mesh.kernel_launches())
-    got = idx.search(q, k=10, l_search=32, mode="packed")
+    idx.search(q, k=10, l_search=32, mode="packed")
     assert all(n["fatrow_expand"] > 0 for n in idx.mesh.kernel_launches())
-    idx.mesh._transport = "host"
-    for a, b in zip(idx.search(q, k=10, l_search=32, mode="packed"), got):
-        np.testing.assert_array_equal(a, b)
     view = idx.shard(1)
     assert view.vectors.device == cuda_device and int(view.valid.sum()) == idx.ns[1]
 

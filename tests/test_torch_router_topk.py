@@ -27,7 +27,7 @@ from diskann_tpu_torch.graph import index as index_mod
 from diskann_tpu_torch.graph.scorers import quantize_queries, smallest_ids
 from diskann_tpu_torch.ops.distance import Metric
 from diskann_tpu_torch.ops.kernels import router_topk as k4
-from torch_port_helpers import CPU, cuda_device  # noqa: F401
+from torch_port_helpers import CPU, cuda_device, launches  # noqa: F401
 
 METRICS = ["l2", "ip"]
 # the packed layout's code widths (dp/4 divides 128)
@@ -120,9 +120,9 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
         return plain(*a, **kw)
 
     monkeypatch.setattr(k4, "router_topk_plain", spy)
-    before = k4.launches
+    before = launches("router_topk")
     out = k4.router_topk(qs, qsq, rc, raux, ids, 6, inner_product=False)
-    assert calls == [6] and k4.launches == before and out.shape == (5, 6)
+    assert calls == [6] and launches("router_topk") == before and out.shape == (5, 6)
     # n_start beyond the router's rows: every row, nearest first
     out = k4.router_topk(qs[:, :16], qsq, rc[:5], raux[:5], ids[:5], 8,
                          inner_product=False)
@@ -280,9 +280,9 @@ def check_on_card(device, b, s, dp, n_start, ip, ties=1, seed=0):
                        dtype=torch.int8).repeat_interleave(ties, 0)[:s].contiguous()
     raux = (rc.float() ** 2).sum(1)
     ids = torch.randperm(4 * s, generator=g, device=device)[:s].to(torch.int32)
-    before = k4.launches
+    before = launches("router_topk")
     got = k4.router_topk(qs, qsq, rc, raux, ids, n_start, inner_product=ip)
-    assert k4.launches == before + 1
+    assert launches("router_topk") == before + 1
     want = k4.router_topk_plain(qs, qsq, rc, raux, ids, n_start, inner_product=ip)
     torch.cuda.synchronize(device)
     assert got.shape == want.shape == (b, min(n_start, s))
@@ -329,10 +329,10 @@ def test_kernel_ties_match_plain(cuda_device, b, s, n_start, metric):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(KERNEL_LIMITS))
 def test_kernel_raises_beyond_its_limits(cuda_device, case):
-    before = k4.launches
+    before = launches("router_topk")
     with pytest.raises(ValueError, match="router_topk"):
         k4.router_topk(*case_args(KERNEL_LIMITS[case], cuda_device)[1], inner_product=False)
-    assert k4.launches == before
+    assert launches("router_topk") == before
 
 
 @pytest.mark.cuda
@@ -365,10 +365,10 @@ def test_kernel_raises_on_a_refused_plan(cuda_device, monkeypatch):
     plan = k4.plan
     monkeypatch.setattr(k4, "plan", lambda *a, **kw: dataclasses.replace(
         plan(*a, **kw), smem_bytes=1024))
-    before = k4.launches
+    before = launches("router_topk")
     with pytest.raises(RuntimeError, match="router_topk"):
         k4.router_topk(qs, qsq, rc, raux, ids, 4, inner_product=False)
-    assert k4.launches == before
+    assert launches("router_topk") == before
 
 
 @pytest.mark.cuda
@@ -380,10 +380,10 @@ def test_graph_search_launches_k4_once_a_batch(cuda_device):
                            device=cuda_device)
     idx.search_batch_size = 100
     q = rng.standard_normal((250, 64)).astype(np.float32)
-    before = k4.launches
+    before = launches("router_topk")
     idx.router_compute = "int8"
     idx.search(q, 10, l_search=24, mode="packed")
-    assert k4.launches == before
+    assert launches("router_topk") == before
     idx.router_compute = "bf16"
     idx.search(q, 10, l_search=24, mode="packed")
-    assert k4.launches == before + 3
+    assert launches("router_topk") == before + 3

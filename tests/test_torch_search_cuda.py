@@ -19,8 +19,8 @@ import pytest
 import torch
 
 from diskann_tpu_torch import GraphConfig, GraphIndex
-from diskann_tpu_torch.ops.kernels import fatrow_expand as k1
 from diskann_tpu_torch.ops.kernels import hop_merge as k3
+from torch_port_helpers import launches
 
 N, NQ, D = 20_000, 1024, 128
 
@@ -50,13 +50,13 @@ def test_packed_search_with_k3_matches_the_plain_hop(card_index, monkeypatch, dp
     idx, q, _ = card_index
     idx.attach_packed(dp=dp)
     kw = dict(l_search=l, beam_width=4, mode="packed", max_hops=hops)
-    k1_before, k3_before = k1.launches, k3.launches
+    k1_before, k3_before = launches("fatrow_expand"), launches("hop_merge")
     got = idx.search(q, 10, **kw)
-    n_k1, n_k3 = k1.launches - k1_before, k3.launches - k3_before
+    n_k1, n_k3 = launches("fatrow_expand") - k1_before, launches("hop_merge") - k3_before
     assert n_k3 > 0 and n_k3 == n_k1
     monkeypatch.setattr(k3, "hop_merge", k3.hop_merge_plain)
     want = idx.search(q, 10, **kw)
-    assert k3.launches == k3_before + n_k3
+    assert launches("hop_merge") == k3_before + n_k3
     np.testing.assert_array_equal(got[1], want[1])
     np.testing.assert_array_equal(got[0].view(np.int32), want[0].view(np.int32))
     np.testing.assert_array_equal(got[2].cmps, want[2].cmps)
@@ -67,22 +67,22 @@ def test_packed_search_with_k3_matches_the_plain_hop(card_index, monkeypatch, dp
 def test_insert_filtered_and_wide_walks_launch_no_k3(card_index):
     idx, q, fresh = card_index
     idx.attach_packed(dp=64)
-    k1_before, k3_before = k1.launches, k3.launches
+    k1_before, k3_before = launches("fatrow_expand"), launches("hop_merge")
     idx.insert(fresh)
-    assert k1.launches > k1_before and k3.launches == k3_before
+    assert launches("fatrow_expand") > k1_before and launches("hop_merge") == k3_before
     rng = np.random.default_rng(3)
     idx.attach_labels([["hot"] if h else ["cold"] for h in rng.random(idx.n) < 0.5])
-    k1_before = k1.launches
+    k1_before = launches("fatrow_expand")
     _, ids, _ = idx.search_filtered(q, "hot", 10, l_search=90, mode="packed",
                                     max_hops=16, scan_threshold=0)
-    assert k1.launches > k1_before and k3.launches == k3_before
+    assert launches("fatrow_expand") > k1_before and launches("hop_merge") == k3_before
     assert (ids >= 0).all()
     # W=64 at r_pack 84: 5,376 candidates a row, past one block's shared
     # memory; the walk keeps the generic body and answers
     idx.attach_packed(dp=128)
     assert not k3.fits(64 * idx.packed.r_pack, 128, 64)
-    k1_before = k1.launches
+    k1_before = launches("fatrow_expand")
     _, ids, stats = idx.search(q, 10, l_search=128, beam_width=64, mode="packed", max_hops=4)
-    assert k1.launches > k1_before and k3.launches == k3_before
+    assert launches("fatrow_expand") > k1_before and launches("hop_merge") == k3_before
     assert (ids >= 0).all() and (stats.hops > 0).all()
 

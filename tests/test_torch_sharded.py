@@ -26,7 +26,8 @@ package's (one shard per device of the 8-device CPU mesh that
   and every generator closed.  The carried JAX
   index crosses into an 8-device list and keeps JAX's ids.  On a host
   without CUDA cards every device here is the CPU, so placement on
-  several cards is held only by `chip_smoke.py`'s [sharded] phase.
+  cards is held on a card by `tests/test_torch_mesh_cuda.py` (marker
+  `cuda`) and across four by the benchmark's sharded cell (`annbench/`).
 """
 
 import json

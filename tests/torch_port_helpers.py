@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from diskann_tpu_torch.ops.kernels import native
+
 # the suite runs under several worker processes: keep each one's torch
 # thread pool small
 torch.set_num_threads(2)
@@ -122,6 +124,11 @@ def rand_word_rows(rng, n_nodes: int, nwr: int) -> np.ndarray:
     """Random int32 word table [n_nodes * nwr, 128]."""
     return rng.integers(-(2**31), 2**31, size=(n_nodes * nwr, 128),
                         dtype=np.int64).astype(np.int32)
+
+
+def launches(kernel: str) -> int:
+    """The launches of CUDA kernel ``kernel`` so far in this process."""
+    return native.launches[kernel]
 
 
 @pytest.fixture
